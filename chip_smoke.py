@@ -10,6 +10,10 @@ Phases, each printing one line (any failure exits non-zero):
 3. kernels: K1, K2 and K3 against their plain PyTorch arms on the card at
    the slice's shapes, bitwise, with CUDA-event times, the bytes bound and
    (where one PyTorch call computes the same function) that call's time;
+   K3 also over the cases of ``K3_CASES`` (one ``[k3case]`` line each, with
+   the rows that took its serial branch), beside the one-pass range apply
+   and the bound of two full passes over the table (what a whole-row
+   design moves); K1 and K2 beside the launch floor, K2 on one row;
 4. parity: the kernel path against the plain path on the card at
    1024 groups x 3, and the card against the CPU at 64 groups x 3, over
    elect_all + 40 run_steps_sm steps, every state and table leaf equal;
@@ -224,59 +228,144 @@ def _k2(torch, dev, gen) -> dict:
     }
 
 
-def _k3_case(torch, dev, gen, hash_keys: bool):
-    from dragonboat_tpu_torch.rsm.device_kv import DeviceKV
-    from dragonboat_tpu_torch.rsm.device_kv_kernels import apply_window
+# K3's cases: (name, table_cap, probe_depth, apply batch, hash_keys, rows,
+# command keys, table fill, fill share, share of rows with no valid lane).
+# "direct" is the main path's window and the timed one; the others reach
+# the kernel's serial branch and every edge of the semantics.
+K3_CASES = (
+    ("direct", TABLE_CAP, 8, 64, False, SLICE_GROUPS * REPLICAS, "contiguous", "own", 0.0, 0.0),
+    ("hashed", TABLE_CAP, 8, 64, True, SLICE_GROUPS * REPLICAS, "random", "random", 0.9, 0.0),
+    ("duplicates", TABLE_CAP, 8, 64, True, 4096, "duplicates", "random", 0.5, 0.0),
+    ("overlap", TABLE_CAP, 8, 64, False, 4096, "alias", "alias", 0.5, 0.0),
+    ("wrap_t64_ab40", 64, 8, 40, False, 4096, "wrap", "own", 0.5, 0.25),
+    ("edges_d1", 64, 1, 64, False, 4096, "edges", "alias", 0.3, 0.1),
+    ("d40_ab40", 256, 40, 40, True, 4096, "dense", "random", 0.8, 0.1),
+    ("wide", None, 8, 64, False, 1024, "mixed", "own", 0.5, 0.0),
+)
+INT_MAX = 2**31 - 1
 
-    G, T, AB = SLICE_GROUPS * REPLICAS, TABLE_CAP, 64
-    kv = DeviceKV(table_cap=T, probe_depth=8, hash_keys=hash_keys)
-    if hash_keys:
-        # a 90%-full table and keys outside the stored set (plus negative
-        # keys): probe windows fill and writes are rejected
-        keys0 = torch.randint(1, 1 << 16, (G, T), generator=gen, dtype=torch.int32)
-        keys0[torch.rand((G, T), generator=gen) < 0.1] = 0
-        ck = torch.randint(-2, 1 << 16, (G, AB), generator=gen, dtype=torch.int32)
+
+def _k3_inputs(torch, gen, T, AB, G, hash_keys, keys_mode, fill, share, dead):
+    """A table and a window of commands for one case, on the host."""
+    I32 = torch.int32
+    slot = torch.arange(T, dtype=torch.int64)[None, :]
+    if fill == "own":          # a direct-mapped slot holds its own key
+        tk = slot.expand(G, T) + 1
+    elif fill == "alias":      # or one of its aliases, key + n * T
+        tk = slot + T * torch.randint(0, 3, (G, T), generator=gen) + 1
     else:
-        # the main path's shape: a contiguous index window per row
-        keys0 = torch.zeros((G, T), dtype=torch.int32)
-        first = torch.randint(0, T, (G, 1), generator=gen, dtype=torch.int32)
-        ck = (first + torch.arange(AB, dtype=torch.int32)[None, :]) & (T - 1)
+        tk = torch.randint(1, 1 << 16, (G, T), generator=gen)
+    keys0 = torch.where(torch.rand((G, T), generator=gen) < share, tk, 0).to(I32)
+    j = torch.arange(AB, dtype=torch.int64)[None, :]
+    first = torch.randint(0, T, (G, 1), generator=gen)
+    if keys_mode == "wrap":    # windows that run from T - 1 over to 0
+        first = T - 1 - torch.randint(0, AB // 2, (G, 1), generator=gen)
+    contiguous = (first + j) & (T - 1)
+    alias = contiguous + T * torch.randint(0, 3, (G, AB), generator=gen)
+    if keys_mode in ("contiguous", "wrap"):
+        ck = contiguous
+    elif keys_mode == "alias":
+        ck = alias
+    elif keys_mode == "mixed":     # even rows contiguous, odd rows aliased
+        ck = torch.where(torch.arange(G)[:, None] % 2 == 0, contiguous, alias)
+    elif keys_mode == "random":
+        ck = torch.randint(-2, 1 << 16, (G, AB), generator=gen)
+    elif keys_mode == "dense":
+        ck = torch.randint(-2, 2 * T, (G, AB), generator=gen)
+    elif keys_mode == "duplicates":  # three keys per row, each written often
+        few = torch.randint(0, 1 << 16, (G, 3), generator=gen)
+        ck = torch.gather(few, 1, torch.randint(0, 3, (G, AB), generator=gen))
+    else:                          # "edges": INT_MAX (stored as INT_MIN), negatives
+        pool = torch.tensor([INT_MAX, INT_MAX - T, -(2**31), -1, 0, T - 1, 1])
+        ck = pool[torch.randint(0, len(pool), (G, AB), generator=gen)]
+    cv = torch.randint(-5, 1 << 20, (G, AB), generator=gen)
+    valid = torch.rand((G, AB), generator=gen) < 0.9
+    valid[torch.rand((G,), generator=gen) < dead] = False
     state0 = {
-        "keys": keys0.to(dev),
-        "vals": torch.randint(-1000, 1000, (G, T), generator=gen,
-                              dtype=torch.int32).to(dev),
-        "count": (keys0 != 0).sum(dim=1, dtype=torch.int32).to(dev),
+        "keys": keys0,
+        "vals": torch.randint(-1000, 1000, (G, T), generator=gen, dtype=I32),
+        "count": (keys0 != 0).sum(dim=1, dtype=I32),
     }
-    cv = torch.randint(-5, 1 << 20, (G, AB), generator=gen, dtype=torch.int32)
-    cmds = torch.stack([ck, cv], dim=-1).to(dev).contiguous()
-    valid = (torch.rand((G, AB), generator=gen) < 0.9).to(dev)
-    st_k = {k: v.clone() for k, v in state0.items()}
-    st_k, (rk, okk) = apply_window(kv, st_k, cmds, valid)
+    return state0, torch.stack([ck, cv], dim=-1).to(I32), valid
+
+
+def _k3_case(torch, dev, gen, case) -> dict:
+    """One K3 case: the kernel against the sequential plain arm, bitwise,
+    with the rows that took the kernel's serial branch."""
+    from dragonboat_tpu_torch.rsm.device_kv import DeviceKV
+    from dragonboat_tpu_torch.rsm.device_kv_kernels import MAX_TABLE_CAP, apply_window
+
+    name, T, D, AB, hashed, G, keys_mode, fill, share, dead = case
+    T = T or MAX_TABLE_CAP
+    kv = DeviceKV(table_cap=T, probe_depth=D, hash_keys=hashed)
+    state0, cmds, valid = _k3_inputs(torch, gen, T, AB, G, hashed, keys_mode,
+                                     fill, share, dead)
+    state0 = {k: v.to(dev) for k, v in state0.items()}
+    cmds, valid = cmds.to(dev).contiguous(), valid.to(dev)
+    serial = torch.full((G,), 7, dtype=torch.uint8, device=dev)
+    st_k, (rk, okk) = apply_window(kv, {k: v.clone() for k, v in state0.items()},
+                                   cmds, valid, serial_rows=serial)
     st_p, (rp, okp) = kv.apply_kernel(state0, cmds, valid)
     torch.cuda.synchronize()
     mism = sum(int((st_k[f] != st_p[f]).sum()) for f in st_k)
     mism += int((rk != rp).sum()) + int((okk != okp).sum())
     err = max(max_abs_err(torch, st_k[f], st_p[f]) for f in st_k)
     err = max(err, max_abs_err(torch, rk, rp), max_abs_err(torch, okk, okp))
-    rejects = int((valid & ~okp).sum())
-    return kv, state0, cmds, valid, mism, err, rejects
+    check(bool((serial <= 1).all()), f"K3 case {name}: serial_rows not written on every row")
+    # the window applied again and again to one copy of the table, in place
+    work = {k: v.clone() for k, v in state0.items()}
+    ms, _how = cuda_ms(torch, lambda: apply_window(kv, work, cmds, valid))
+    out = {"case": name, "table_cap": T, "probe_depth": D, "apply_batch": AB,
+           "hashed": hashed, "rows": G, "mismatches": mism, "max_abs_err": err,
+           "rejects": int((valid & ~okp).sum()),
+           "serial_rows": int(serial.sum()), "accepted": int(okp.sum()),
+           "ms_in_place": ms}
+    say("k3case", **out)
+    return {**out, "kv": kv, "state0": state0, "cmds": cmds, "valid": valid}
+
+
+def _k3_bytes(torch, kv, cmds, valid, accepted: int) -> tuple[int, int]:
+    """Bytes and operations one apply window needs when its rows apply at
+    once (the kernel's parallel branch, where no slot is written twice):
+    the commands and valid flags in, results and ok out, count read and
+    written, the keys of the distinct slots the active commands' probe
+    windows cover (a stored value is never read), and the key and value
+    of each accepted command's slot."""
+    G, AB = valid.shape
+    T, D = kv.table_cap, kv.probe_depth
+    key = cmds[..., 0]
+    active = valid & (key >= 0)
+    home = kv.home_slot(key.reshape(-1)).reshape(G, AB)
+    win = (home[..., None] + torch.arange(D, dtype=torch.int32, device=key.device)) & (T - 1)
+    covered = torch.zeros((G, T + 1), dtype=torch.bool, device=key.device)
+    covered.scatter_(1, torch.where(active[..., None], win, T).reshape(G, -1).long(), True)
+    window_slots = int(covered[:, :T].sum())
+    n_active = int(active.sum())
+    nbytes = (G * AB * 8 + G * AB + G * AB * 4 + G * AB + 2 * G * 4
+              + window_slots * 4 + accepted * 8)
+    return nbytes, n_active * (3 * D + 12)
 
 
 def _k3(torch, dev, gen) -> dict:
     from dragonboat_tpu_torch.rsm.device_kv_kernels import apply_window
 
-    mism, err, rej = 0, 0, {}
-    for hashed in (False, True):
-        kv, state0, cmds, valid, m, e, r = _k3_case(torch, dev, gen, hashed)
-        mism, err, rej["hashed" if hashed else "direct"] = mism + m, max(err, e), r
-    check(rej["hashed"] > 0, "K3 hashed case exercised no rejects")
-    # time the main path's direct-mapped shape (the last case is hashed:
-    # rebuild the direct one)
-    kv, state0, cmds, valid, _m, _e, _r = _k3_case(torch, dev, gen, False)
+    cases = [_k3_case(torch, dev, gen, c) for c in K3_CASES]
+    by = {c["case"]: c for c in cases}
+    mism = sum(c["mismatches"] for c in cases)
+    err = max(c["max_abs_err"] for c in cases)
+    check(by["hashed"]["rejects"] > 0, "K3 hashed case exercised no rejects")
+    check(by["direct"]["serial_rows"] == 0, "K3 main-path window took the serial branch")
+    for name in ("overlap", "duplicates"):
+        check(by[name]["serial_rows"] > 0, f"K3 case {name} never took the serial branch")
+    # time the main path's direct-mapped window
+    direct = by["direct"]
+    kv, state0, cmds, valid = direct["kv"], direct["state0"], direct["cmds"], direct["valid"]
     work = {k: v.clone() for k, v in state0.items()}
     G, T = state0["keys"].shape
     AB = cmds.shape[1]
-    b_ms, b_by = bound(
+    b_ms, b_by = bound(*_k3_bytes(torch, kv, cmds, valid, direct["accepted"]))
+    # the bound of a whole-row design: two full passes over the [G, T] table
+    full_ms, _ = bound(
         2 * (2 * G * T * 4) + 2 * G * 4 + G * AB * 8 + G * AB + G * AB * 4 + G * AB,
         G * AB * (3 * kv.probe_depth + 12))
     # second yardstick: the reference's default device-SM path applies a
@@ -300,17 +389,37 @@ def _k3(torch, dev, gen) -> dict:
         "source": "dragonboat_tpu_torch/csrc/kv_apply.cu",
         "replaces": "dragonboat_tpu/rsm/device_kv_pallas.py:141",
         "shape": f"table [{G}, {T}] i32 x2, cmds [{G}, {AB}, 2] i32, direct-mapped",
-        "mismatches": mism, "max_abs_err": err, "rejects": rej,
-        "bound_ms": b_ms, "bound_by": b_by, "range_ms": range_ms, **times,
+        "mismatches": mism, "max_abs_err": err,
+        "rejects": {c["case"]: c["rejects"] for c in cases},
+        "serial_rows": {c["case"]: c["serial_rows"] for c in cases},
+        "bound_ms": b_ms, "bound_by": b_by, "full_table_bound_ms": full_ms,
+        "range_ms": range_ms, "range_over_kernel": range_ms / times["ms"], **times,
     }
+
+
+def _launch_floor_ms(torch, dev) -> float:
+    """K2 on one row ([1, 8] -> [1, 4]): the time of a launch that does
+    next to no work, read beside K1's and K2's times."""
+    from dragonboat_tpu_torch.parallel import fabric_kernels as fk
+
+    vals = torch.arange(8, dtype=torch.int32, device=dev)[None, :]
+    idx = torch.tensor([[1, 8, 3, 0]], dtype=torch.int32, device=dev)
+    return cuda_ms(torch, lambda: fk.gather_lanes(vals, idx))[0]
 
 
 def phase_kernels(torch, dev) -> list[dict]:
     gen = torch.Generator().manual_seed(SEED)
     rows = [_k1(torch, dev, gen), _k2(torch, dev, gen), _k3(torch, dev, gen)]
+    floor_ms = _launch_floor_ms(torch, dev)
+    for r in rows[:2]:
+        r["launch_floor_ms"] = floor_ms
     for r in rows:
-        extra = ({"range_ms": r["range_ms"], "rejects": json.dumps(r["rejects"], separators=(",", ":"))}
-                 if "range_ms" in r else {})
+        if "range_ms" in r:
+            extra = {k: r[k] for k in ("full_table_bound_ms", "range_ms", "range_over_kernel")}
+            extra.update({k: json.dumps(r[k], separators=(",", ":"))
+                          for k in ("rejects", "serial_rows")})
+        else:
+            extra = {"launch_floor_ms": r["launch_floor_ms"]}
         say("kernel", name=r["name"], mismatches=r["mismatches"],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -440,6 +549,9 @@ def phase_slice(torch, dev) -> dict:
                         if isinstance(v, dict) else v) for k, v in stats.items()})
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
+    check(launches["kv_apply"] == WINDOW_STEPS + SETTLE_STEPS,
+          f"kv_apply launched {launches['kv_apply']} times in "
+          f"{WINDOW_STEPS + SETTLE_STEPS} device-SM steps")
     return launches
 
 

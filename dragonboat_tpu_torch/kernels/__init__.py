@@ -48,7 +48,7 @@ _C_PTR = ctypes.c_void_p
 _SIGNATURES = {
     "dbt_quorum_match": (_C_PTR,) * 4 + (_C_INT,) * 2 + (_C_PTR,),
     "dbt_gather_lanes": (_C_PTR,) * 3 + (_C_INT,) * 3 + (_C_PTR,),
-    "dbt_kv_apply": (_C_PTR,) * 7 + (_C_INT,) * 5 + (_C_PTR,),
+    "dbt_kv_apply": (_C_PTR,) * 8 + (_C_INT,) * 5 + (_C_PTR,),
 }
 
 
