@@ -1,0 +1,349 @@
+"""Unified engine dispatch: ONE step loop, one backend so far.
+
+The port of the reference's ``engine/dispatch.py``.  ``KernelEngine.step_all``
+is the only step loop; a dispatch backend contributes only ``dispatch()``
+and its entries.  The port has the single-device backend,
+``SerialDispatch``, bound to the port's ``core/kernel.step`` and
+``step_donated`` (eager PyTorch: the step's commit rule launches K1 on the
+card).  The reference's second backend, ``MeshDispatch`` (the shard_map
+serving path of ``parallel/ici.py``), is ROADMAP.md Queue 1 item 11.
+
+The module-level tuples and dicts below are the reference's machine-read
+contract, copied as they stand (with the package prefix rewritten): which
+methods only the step-loop owner may define, the sanctioned subclass
+seams, the feature knobs the step loop must read, every dispatch entry
+(the ``serve_step*`` rows describe the mesh backend still to come), the
+sanctioned device->host sync sites, and the per-entry transfer ledger.
+In the port the crossing sites count under their ``capacity.METER`` tags
+as in the reference.
+"""
+
+from __future__ import annotations
+
+from dragonboat_tpu_torch import capacity as _capacity
+from dragonboat_tpu_torch.core import params as KP
+from dragonboat_tpu_torch.core.kernel import (
+    step as kernel_step,
+    step_donated as kernel_step_donated,
+)
+
+#: the one class allowed to define step-loop internals
+STEP_LOOP_OWNER = "KernelEngine"
+
+#: step-loop internals: defining any of these in a subclass of the owner
+#: is a second step-loop implementation (EU001)
+STEP_LOOP_METHODS = (
+    "step_all",
+    "_flush_injections",
+    "_stage_lane",
+    "_stage_props",
+    "_process_outputs",
+    "_kernel_call",
+    "_capacity_entries",
+    "_device_pending",
+    "_fleet_inbox_from",
+    "_capacity_trees",
+    "_capacity_model_classes",
+    "_make_health_digest",
+    "_make_invariant_digest",
+)
+
+#: sanctioned subclass seams: addressing, membership, escalation,
+#: host-side message emission, and the dispatch-backend factory
+DISPATCH_SEAMS = (
+    "_make_dispatch",
+    "_emit_messages",
+    "_prop_target",
+    "_mirror_floor",
+    "_is_registered",
+    "_evict",
+    "add_shard",
+    "remove_shard",
+    "update_lane_membership",
+)
+
+#: ExpertConfig-fed engine attributes gating dispatch features; every
+#: one must be read on a path reachable from step_all in EVERY concrete
+#: engine (EU002 flags per-path drift)
+ENGINE_FEATURE_KNOBS = (
+    "pipeline_depth",
+    "fleet_stats_every",
+    "health_top_k",
+    "invariant_probe",
+)
+
+#: feature calls (not attributes) that must stay reachable from the
+#: step loop on every path — the masked output fetch is gated on the
+#: [G, C] activity matrix this produces
+ENGINE_FEATURE_CALLS = ("output_row_flags",)
+
+#: every jit entry a dispatch backend may call.  ``donated`` entries
+#: must be kstate.DONATION-declared (EU003 cross-checks via KC008);
+#: non-donated entries carry a waiver naming why donation is out.
+DISPATCH_ENTRIES = {
+    "step": {
+        "module": "dragonboat_tpu_torch/core/kernel.py",
+        "function": "step",
+        "donated": False,
+        "waiver": "depth-0 serial oracle: the differential reference "
+                  "entry must leave its inputs readable",
+    },
+    "step_donated": {
+        "module": "dragonboat_tpu_torch/core/kernel.py",
+        "function": "step_donated",
+        "donated": True,
+        "waiver": "",
+    },
+    "serve_step": {
+        "module": "dragonboat_tpu/parallel/ici.py",
+        "function": "jit_serve_step",
+        "donated": False,
+        "waiver": "depth-0 mesh oracle: the differential reference "
+                  "entry must leave its inputs readable",
+    },
+    "serve_step_donated": {
+        "module": "dragonboat_tpu/parallel/ici.py",
+        "function": "jit_serve_step_donated",
+        "donated": True,
+        "waiver": "",
+    },
+}
+
+#: every sanctioned device->host SYNC site in the engine layer, keyed by
+#: the host-side qualname whose body may force a device value
+#: (``int()`` / ``.item()`` / ``np.asarray`` / ``block_until_ready``).
+#: The transfer pass (analysis/transfer.py TB005 — the engine-scope
+#: sharpening of PS006) fails any other engine-layer sync; the runtime
+#: leg counts each under ``tag`` via capacity.METER.  Declaring a site
+#: here is a REVIEWED claim that the sync is off the per-step critical
+#: path or deliberately masked/lazy.
+SYNC_POINTS = {
+    "_LazyOut.__getitem__": {
+        "tag": "lazy_out",
+        "why": "memoized per-field StepOutput fetch — the masked-fetch "
+               "path that replaced the eager 42-field sweep",
+    },
+    "KernelEngine._process_outputs": {
+        "tag": "output_flags",
+        "why": "the [G, 8] activity matrix gating the masked fetch, "
+               "plus the save-window lt rows for persisted lanes",
+    },
+    "KernelEngine._emit_messages": {
+        "tag": "wit_snap_floor",
+        "why": "witness-snapshot floor probe (snap_index scalar) on the "
+               "rare wit_snap retire path only",
+    },
+}
+
+#: the machine-read transfer contract: every value crossing the
+#: device<->host boundary through the dispatch seam, per jit entry
+#: (analysis/transfer.py sizes each row in closed form from the
+#: CONTRACTS grammar and gates the per-step totals against
+#: analysis/transfer_budget.json).  Row schema:
+#:   value    contract class name or inline contract string
+#:   param    entry parameter the upload binds (classification cross-check)
+#:   site     host qualname performing the crossing
+#:   tag      capacity.METER tag the site counts under
+#:   per_step crossing happens on EVERY step of this entry's profile
+#:   masked   download is lane/field-masked (the _LazyOut discipline)
+#:   cached   upload is memoized until invalidated (not per-step)
+#: ``_control`` rows are step-loop control-plane crossings (admissions,
+#: membership, telemetry) that belong to no single entry.
+TRANSFER_LEDGER = {
+    "step": {
+        "resident": ("ShardState",),
+        "up": (
+            {"value": "Inbox", "param": "inbox",
+             "site": "_InboxBuilder.to_device", "tag": "inbox_up",
+             "per_step": True},
+            {"value": "StepInput", "param": "inp",
+             "site": "_InputBuilder.to_device", "tag": "input_up",
+             "per_step": True},
+        ),
+        "down": (
+            {"value": "[G, 8] bool",
+             "site": "KernelEngine._process_outputs",
+             "tag": "output_flags", "per_step": True},
+            {"value": "StepOutput", "site": "_LazyOut.__getitem__",
+             "tag": "lazy_out", "per_step": False, "masked": True},
+            {"value": "[G, CAP] i32",
+             "site": "KernelEngine._process_outputs", "tag": "lt_rows",
+             "per_step": False, "masked": True},
+        ),
+    },
+    "step_donated": {
+        "resident": ("ShardState",),
+        "up": (
+            {"value": "Inbox", "param": "inbox",
+             "site": "_InboxBuilder.to_device", "tag": "inbox_up",
+             "per_step": True},
+            {"value": "StepInput", "param": "inp",
+             "site": "_InputBuilder.to_device", "tag": "input_up",
+             "per_step": True},
+        ),
+        "down": (
+            {"value": "[G, 8] bool",
+             "site": "KernelEngine._process_outputs",
+             "tag": "output_flags", "per_step": True},
+            {"value": "StepOutput", "site": "_LazyOut.__getitem__",
+             "tag": "lazy_out", "per_step": False, "masked": True},
+            {"value": "[G, CAP] i32",
+             "site": "KernelEngine._process_outputs", "tag": "lt_rows",
+             "per_step": False, "masked": True},
+        ),
+    },
+    "serve_step": {
+        "resident": ("ShardState", "Inbox"),
+        "up": (
+            {"value": "StepInput", "param": "inp",
+             "site": "_InputBuilder.to_device", "tag": "input_up",
+             "per_step": True},
+            {"value": "[G, P] bool", "param": "cut",
+             "site": "MeshDispatch.dispatch", "tag": "cut_up",
+             "per_step": False, "cached": True},
+            {"value": "Inbox", "site": "_InboxBuilder.to_device",
+             "tag": "inbox_up", "per_step": False},
+        ),
+        "down": (
+            {"value": "[G, 8] bool",
+             "site": "KernelEngine._process_outputs",
+             "tag": "output_flags", "per_step": True},
+            {"value": "StepOutput", "site": "_LazyOut.__getitem__",
+             "tag": "lazy_out", "per_step": False, "masked": True},
+            {"value": "[G, CAP] i32",
+             "site": "KernelEngine._process_outputs", "tag": "lt_rows",
+             "per_step": False, "masked": True},
+        ),
+    },
+    "serve_step_donated": {
+        "resident": ("ShardState", "Inbox"),
+        "up": (
+            {"value": "StepInput", "param": "inp",
+             "site": "_InputBuilder.to_device", "tag": "input_up",
+             "per_step": True},
+            {"value": "[G, P] bool", "param": "cut",
+             "site": "MeshDispatch.dispatch", "tag": "cut_up",
+             "per_step": False, "cached": True},
+            {"value": "Inbox", "site": "_InboxBuilder.to_device",
+             "tag": "inbox_up", "per_step": False},
+        ),
+        "down": (
+            {"value": "[G, 8] bool",
+             "site": "KernelEngine._process_outputs",
+             "tag": "output_flags", "per_step": True},
+            {"value": "StepOutput", "site": "_LazyOut.__getitem__",
+             "tag": "lazy_out", "per_step": False, "masked": True},
+            {"value": "[G, CAP] i32",
+             "site": "KernelEngine._process_outputs", "tag": "lt_rows",
+             "per_step": False, "masked": True},
+        ),
+    },
+    "fleet_stats": {
+        "resident": ("ShardState",),
+        "up": (
+            {"value": "[G, K] i32", "param": "inbox_from",
+             "site": "KernelEngine._collect_fleet_stats",
+             "tag": "fleet_down", "per_step": False},
+        ),
+        "down": (
+            {"value": "FleetStats",
+             "site": "KernelEngine._collect_fleet_stats",
+             "tag": "fleet_down", "per_step": False},
+        ),
+    },
+    "fleet_health": {
+        "resident": ("ShardState", "HealthDigest"),
+        "up": (
+            {"value": "[G, K] i32", "param": "inbox_from",
+             "site": "KernelEngine._collect_health",
+             "tag": "health_down", "per_step": False},
+        ),
+        "down": (
+            {"value": "HealthReport",
+             "site": "KernelEngine._collect_health",
+             "tag": "health_down", "per_step": False},
+        ),
+    },
+    "check_invariants": {
+        "resident": ("ShardState", "InvariantDigest"),
+        "up": (
+            {"value": "[G] i32",
+             "site": "KernelEngine._collect_invariants",
+             "tag": "invariants_down", "per_step": False},
+        ),
+        "down": (
+            {"value": "InvariantReport",
+             "site": "KernelEngine._collect_invariants",
+             "tag": "invariants_down", "per_step": False},
+        ),
+    },
+    "_control": (
+        {"value": "ShardState", "dir": "up",
+         "site": "KernelEngine._flush_injections", "tag": "inject_up",
+         "per_step": False},
+        {"value": "[G, P] i32", "dir": "up",
+         "site": "KernelEngine.update_lane_membership",
+         "tag": "membership_up", "per_step": False},
+        {"value": "[G, P] i32", "dir": "up",
+         "site": "MeshEngine.update_lane_membership",
+         "tag": "membership_up", "per_step": False},
+        {"value": "ShardRow", "dir": "down",
+         "site": "KernelEngine.health_row", "tag": "health_row",
+         "per_step": False},
+        {"value": "[G] i32", "dir": "down",
+         "site": "KernelEngine._emit_messages", "tag": "wit_snap_floor",
+         "per_step": False},
+    ),
+}
+
+
+class SerialDispatch:
+    """Single-device backend: inbox re-staged from host every step."""
+
+    def __init__(self, kp: KP.KernelParams,
+                 step_fn=None, donated_fn=None) -> None:
+        self.kp = kp
+        # per-instance telemetry wrappers (own counters; eager entries
+        # count calls and never record a compile).
+        # step_fn/donated_fn let the engine bind ITS module globals
+        # (chaos tests swap in mutated kernels there)
+        self.entries = {
+            "step": _capacity.TRACKER.wrap(
+                "step", step_fn if step_fn is not None else kernel_step),
+            "step_donated": _capacity.TRACKER.wrap(
+                "step_donated",
+                donated_fn if donated_fn is not None
+                else kernel_step_donated),
+        }
+
+    def dispatch(self, state, inbox, inp, donate: bool):
+        """One step.  ``donate=True`` routes through the donating entry
+        (core/kernel.py ``step_donated``): under its no-touch contract
+        the host must not read the passed state/inbox/input again after
+        this call — step_all's retire-before-dispatch order upholds
+        that."""
+        entry = self.entries["step_donated" if donate else "step"]
+        return entry(self.kp, state, inbox.to_device(), inp.to_device())
+
+    def pending(self) -> bool:
+        """No device-resident inbox: nothing carries between steps."""
+        return False
+
+    def note_output_flags(self, flags) -> None:
+        """No carried inbox, so retired activity flags carry no drain
+        information here; MeshDispatch derives pending() from them."""
+
+    def inbox_from(self, inbox_buf):
+        """[G, K] sender ids for the inbox-occupancy histogram — the
+        host-staged builder is the inbox here."""
+        return inbox_buf.from_
+
+    def shard(self, tree):
+        """Single device: placement is a no-op."""
+        return tree
+
+    def resident_trees(self) -> tuple:
+        return ()
+
+    def resident_classes(self) -> tuple:
+        return ()

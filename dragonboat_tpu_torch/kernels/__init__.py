@@ -12,6 +12,11 @@ every module on a machine with no ``nvcc``.
 Every wrapper follows one rule: a CPU tensor takes the plain PyTorch arm,
 a CUDA tensor launches the kernel or raises (no fallback).  Each launch
 adds one to ``launches[name]``; nothing else touches the counts.
+
+Several engine threads (one per ``NodeHost``) launch kernels at once, so
+building and loading the library is serialized by one lock (the first
+use from several threads builds and loads once) and the launch counts
+are updated under another.
 ``plain_arms()`` forces the plain arms on the card, for runs that compare
 the kernel path with the plain path.
 """
@@ -25,6 +30,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
@@ -40,6 +46,10 @@ launches: dict[str, int] = {"quorum_match": 0, "gather_lanes": 0,
                             "kv_apply": 0}
 
 _state: dict = {"lib": None, "force_plain": False}
+# serializes build() and library(): re-entrant, library() calls build()
+_lib_mu = threading.RLock()
+# guards the read-modify-write of the launch counts
+_count_mu = threading.Lock()
 
 _C_INT = ctypes.c_int
 _C_PTR = ctypes.c_void_p
@@ -53,8 +63,9 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    with _count_mu:
+        for k in launches:
+            launches[k] = 0
 
 
 @contextlib.contextmanager
@@ -112,6 +123,11 @@ def build() -> Path:
     """Compile every csrc/*.cu (in parallel) and link one shared library;
     returns its path.  A library already built from the same sources and
     flags is reused.  Raises with the compiler's output on failure."""
+    with _lib_mu:
+        return _build_locked()
+
+
+def _build_locked() -> Path:
     out = library_path()
     if out.exists():
         return out
@@ -148,14 +164,18 @@ def build() -> Path:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    if _state["lib"] is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = _C_INT
-        _state["lib"] = lib
-    return _state["lib"]
+    lib = _state["lib"]
+    if lib is not None:
+        return lib
+    with _lib_mu:
+        if _state["lib"] is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = _C_INT
+            _state["lib"] = lib
+        return _state["lib"]
 
 
 def stream_ptr(device: torch.device) -> int:
@@ -166,7 +186,8 @@ def check_launch(rc: int, name: str) -> None:
     """Raise if a launch returned a CUDA error; count it otherwise."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
-    launches[name] += 1
+    with _count_mu:
+        launches[name] += 1
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -100,3 +100,163 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setitem(kernels._state, "lib", None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.library()
+
+
+def test_nodehost_path_imports_no_jax_and_no_reference_package():
+    code = textwrap.dedent("""
+        import sys, time
+        sys.path.insert(0, "tests")
+        from test_torch_nodehost import make_cluster, close_all
+        hosts = make_cluster(f"rules{time.monotonic_ns()}", auto_run=False)
+        try:
+            lead = 0
+            for _ in range(40):
+                for nh in hosts.values():
+                    nh.tick_all(); nh.tick_all()
+                for nh in hosts.values():
+                    nh.run_once()
+                ids = {nh.get_leader_id(1) for nh in hosts.values()}
+                if len(ids) == 1 and ids.copy().pop()[1]:
+                    lead = ids.pop()[0]
+                    break
+            assert lead, "no leader"
+            nh = hosts[lead]
+            rs = nh.propose(nh.get_noop_session(1), b"a=1", timeout_s=2)
+            for _ in range(20):
+                for h in hosts.values():
+                    h.tick_all(); h.tick_all()
+                for h in hosts.values():
+                    h.run_once()
+            assert rs.result.completed(), rs.result
+            assert all(h.stale_read(1, "a") == "1" for h in hosts.values())
+        finally:
+            close_all(hosts)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "dragonboat_tpu" or m.startswith("dragonboat_tpu."))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "LOADED []" in res.stdout
+
+
+def test_nodehost_without_device_raises_when_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from dragonboat_tpu_torch.config import NodeHostConfig
+    from dragonboat_tpu_torch.nodehost import NodeHost
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NodeHost(NodeHostConfig(raft_address="rules-nodev-1"), auto_run=False)
+
+
+def test_engine_refuses_the_device_reductions():
+    from dragonboat_tpu_torch.engine.kernel_engine import KernelEngine
+
+    kp = bl.bench_params(3, device="cpu")
+    for kw in ({"fleet_stats_every": 10}, {"health_top_k": 8},
+               {"invariant_probe": True}):
+        with pytest.raises(ValueError, match="Queue 1 item 7"):
+            KernelEngine(kp, 4, lambda m: None, device="cpu", **kw)
+    eng = KernelEngine(kp, 4, lambda m: None, device="cpu")
+    assert (eng.fleet_stats_every, eng.health_top_k,
+            eng.invariant_probe) == (0, 0, False)
+
+
+def test_nodehost_refuses_off_path_settings():
+    from dragonboat_tpu_torch.config import (
+        Config,
+        ExpertConfig,
+        MeshSpec,
+        NodeHostConfig,
+    )
+    from dragonboat_tpu_torch.nodehost import NodeHost
+
+    from test_torch_nodehost import KVStateMachine
+
+    # the reference's default ExpertConfig turns the reductions on: the
+    # first device-resident shard is refused before it is registered
+    nh = NodeHost(NodeHostConfig(raft_address="rules-off-1"),
+                  auto_run=False, device="cpu")
+    try:
+        with pytest.raises(ValueError, match="Queue 1 item 7"):
+            nh.start_replica({1: "rules-off-1"}, False, KVStateMachine,
+                             Config(shard_id=1, replica_id=1,
+                                    device_resident=True))
+        assert 1 not in nh.nodes and nh.kernel_engine is None
+    finally:
+        nh.close()
+    cases = (
+        (dict(expert=ExpertConfig(mesh=MeshSpec())), "item 11"),
+        (dict(enable_metrics=True), "item 15"),
+        (dict(expert=ExpertConfig(compile_cache=True)), "item 13"),
+    )
+    for i, (kw, item) in enumerate(cases):
+        with pytest.raises(ValueError, match=item):
+            NodeHost(NodeHostConfig(raft_address=f"rules-off-{i + 2}", **kw),
+                     auto_run=False, device="cpu")
+
+
+def test_gossip_addressing_is_refused():
+    from dragonboat_tpu_torch.config import GossipConfig, NodeHostConfig
+    from dragonboat_tpu_torch.nodehost import NodeHost
+
+    cfg = NodeHostConfig(raft_address="rules-gossip-1",
+                         address_by_node_host_id=True,
+                         gossip=GossipConfig(bind_address="127.0.0.1:0",
+                                             advertise_address="127.0.0.1:1",
+                                             seed=["127.0.0.1:2"]))
+    with pytest.raises(ValueError, match="item 14"):
+        NodeHost(cfg, auto_run=False, device="cpu")
+
+
+def test_kernel_library_and_counts_are_thread_safe(monkeypatch, tmp_path):
+    """library_path() from many threads agrees; concurrent launch counts
+    lose no update; a build with no nvcc raises in every thread."""
+    import threading
+
+    paths, errors = [], []
+
+    def hammer():
+        paths.append(kernels.library_path())
+        for _ in range(500):
+            kernels.check_launch(0, "quorum_match")
+
+    kernels.reset_launches()
+    threads = [threading.Thread(target=hammer) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(set(paths)) == 1
+    assert kernels.launches["quorum_match"] == 8 * 500
+    kernels.reset_launches()
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setitem(kernels._state, "lib", None)
+
+    def load():
+        try:
+            kernels.library()
+        except RuntimeError as e:
+            errors.append(str(e))
+
+    threads = [threading.Thread(target=load) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(errors) == 4 and all("nvcc not found" in e for e in errors)
+    assert kernels._state["lib"] is None
+
+
+def test_host_layer_copies_match_the_reference():
+    from dragonboat_tpu_torch import _hostcopy
+
+    assert _hostcopy.drift() == []
