@@ -25,29 +25,43 @@ Phases, each printing one line (any failure exits non-zero):
    kernel are taken over this phase alone;
 6. nodehost: the port's NodeHost as a user runs it — three hosts in this
    process over the chan transport, ``auto_run=True``, the reference's
-   ExpertConfig and EngineConfig (kernel_log_cap 1024, kernel_num_peers 5,
-   kernel_capacity 1024) with the three decimated device reductions off,
-   1024 device-resident shards x 3 replicas (election_rtt 10,
-   heartbeat_rtt 1): elect every shard, 4 asynchronous writes per shard,
-   every write acknowledged, the last value read back from all 3 replicas
-   of every shard (stale_read) and through the leader on a sample
-   (sync_read); engine step ms over the whole cell and over the write
-   window; K1's launches over this cell alone, and K1 against its plain
-   arm on a sample of the inputs the engine's step gave it; then one more
-   write per shard with host 1's engine step split into thread CPU time
-   and waiting, and one under torch.profiler for the device's busy time
-   per engine step; then the
-   same at
-   kernel_pipeline_depth 1 with 64 shards (overlapped steps > 0); then a
-   short manual-drive script (auto_run=False, one shard) run on the card
-   and on the CPU, every engine state leaf and every replica's applied
-   index and contents equal after every round;
+   default ExpertConfig and EngineConfig (kernel_log_cap 1024,
+   kernel_num_peers 5, kernel_capacity 1024; the fleet, health and
+   invariant reductions every 10 steps, top 8, the probe on) with
+   ``enable_metrics``, 1024 device-resident shards x 3 replicas
+   (election_rtt 10, heartbeat_rtt 1): elect every shard, 4 asynchronous
+   writes per shard, every write acknowledged, the last value read back
+   from all 3 replicas of every shard (stale_read) and through the leader
+   on a sample (sync_read); engine step ms over the whole cell and over
+   the write window; each reduction tick's and the capacity tick's host
+   ms over the cell; K1's launches over this cell alone, split into the
+   step's and the invariant probe's, and K1 against its plain arm on a
+   sample of the inputs each call site gave it ``[nodehost]``.  Then, on
+   every host: ``/metrics`` (the leader counts sum to 1024), ``/healthz``
+   200, ``/debug/groups`` and ``/debug/group/<id>`` through the port's
+   validators (the device row equal to ``health_row``), no invariant
+   violation seen, every reduction and capacity tick taken
+   ``[nodehost_endpoints]``; the four reductions on one engine's
+   snapshot, card against CPU (plain arms) and the recount oracles, every
+   output and digest leaf equal ``[nodehost_reductions]``; each tick run
+   alone with the engines paused, host ms and device ms (torch.profiler)
+   ``[nodehost_reduction_cost]``; one more write per shard with host 1's
+   engine step split into thread CPU time and waiting, and one under
+   torch.profiler for the device's busy time per engine step; then the
+   same cell at kernel_pipeline_depth 1 with 64 shards (overlapped steps >
+   0); then a short manual-drive script (auto_run=False, one shard) run on
+   the card and on the CPU, every engine state leaf, every reduction
+   snapshot and every replica's applied index and contents equal after
+   every round;
 7. the ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
 
 Every number the run takes is printed on these lines.  Needs no network
 and no JAX, and takes no arguments.  ``--compare-workers [ROUNDS]`` runs
 only phases 1, 2 and the 1024 x 3 NodeHost cell, under the reference's
 EngineConfig and under a single step worker, in turn, ROUNDS times each.
+``--compare-reductions [ROUNDS]`` runs only phases 1, 2 and the same cell
+with the three reductions on (the default ExpertConfig) and off, in turn,
+ROUNDS times each.
 """
 
 from __future__ import annotations
@@ -71,6 +85,13 @@ NH_PARITY_ROUNDS = 24
 # K1 on the NodeHost path: kernel_capacity rows x kernel_num_peers
 ENGINE_G, ENGINE_P = 1024, 5
 K1_TAP_EVERY, K1_TAP_KEEP = 25, 16
+# the ExpertConfig switches that turn the three decimated reductions off
+REDUCTIONS_OFF = dict(fleet_stats_every=0, health_top_k=0,
+                      invariant_probe=False)
+# the engine's decimated ticks, timed in the cell and run alone
+TICKS = ("_collect_fleet_stats", "_collect_health", "_collect_invariants",
+         "_collect_capacity")
+COST_REPS = 5
 
 
 class SmokeFailure(RuntimeError):
@@ -674,10 +695,11 @@ def _kv_sm(shard_id, replica_id):
 
 
 def _nh_hosts(tag, shards, dev, depth=0, auto_run=True, one_worker=False,
-              **expert):
+              reductions=True, metrics=False, **expert):
     """Three NodeHosts over the chan transport with ``shards``
-    device-resident shards x 3 replicas; the reference's EngineConfig
-    unless ``one_worker`` asks for a single step worker."""
+    device-resident shards x 3 replicas; the reference's ExpertConfig
+    (the reductions on unless ``reductions`` is False) and EngineConfig
+    (unless ``one_worker`` asks for a single step worker)."""
     from dragonboat_tpu_torch.config import (
         Config,
         EngineConfig,
@@ -691,11 +713,12 @@ def _nh_hosts(tag, shards, dev, depth=0, auto_run=True, one_worker=False,
     for r, addr in addrs.items():
         if one_worker:
             expert["engine"] = EngineConfig(exec_shards=1, apply_shards=1)
-        ex = ExpertConfig(fleet_stats_every=0, health_top_k=0,
-                          invariant_probe=False, kernel_pipeline_depth=depth,
-                          **expert)
+        if not reductions:
+            expert.update(REDUCTIONS_OFF)
+        ex = ExpertConfig(kernel_pipeline_depth=depth, **expert)
         hosts[r] = NodeHost(NodeHostConfig(raft_address=addr,
-                                           rtt_millisecond=10, expert=ex),
+                                           rtt_millisecond=10, expert=ex,
+                                           enable_metrics=metrics),
                             auto_run=auto_run, device=dev)
     for sid in range(1, shards + 1):
         for r, nh in hosts.items():
@@ -779,12 +802,21 @@ def _nh_serve(hosts, shards, deadline_s=300.0) -> dict:
         check(time.perf_counter() - r0 < 60,
               f"{len(stale)} replicas never applied the last write: {stale[:4]}")
         time.sleep(0.1)
+    readback_s = time.perf_counter() - r0
+    r1 = time.perf_counter()
     leaders = _nh_leaders(hosts, shards)
     sample = sorted(leaders)[:: max(1, len(leaders) // NH_SAMPLE_READS)]
-    for sid in sample:
-        got = hosts[leaders[sid]].sync_read(sid, "w", timeout_s=60)
+    # sync_read's ReadIndex round on every sampled shard's leader, issued
+    # together as a client with many shards would (one after another,
+    # each waits several steps of three engines taking turns)
+    reads = {sid: hosts[leaders[sid]].read_index(sid, 60) for sid in sample}
+    for sid, rs in reads.items():
+        rs.get(60)
+        got = hosts[leaders[sid]].read_local_node(sid, "w")
         check(got == want[sid], f"shard {sid}: sync_read {got!r} != {want[sid]!r}")
-    return {"elect_s": elect_s, "writes": shards * NH_WRITES,
+    return {"readback_s": readback_s,
+            "sync_read_s": time.perf_counter() - r1,
+            "elect_s": elect_s, "writes": shards * NH_WRITES,
             "acked": acked, "retried": retried, "write_s": write_s,
             "writes_per_s": acked / write_s,
             "step_ms_p50": float(np.percentile(steps, 50)),
@@ -797,38 +829,271 @@ def _nh_serve(hosts, shards, deadline_s=300.0) -> dict:
             "sync_read_sample": len(sample)}
 
 
-def _tap_k1(store: list):
-    """Route the step's K1 call through a tap that clones the inputs of
-    every K1_TAP_EVERY-th call (up to K1_TAP_KEEP) into ``store`` before
-    it launches; returns the function that takes the tap out."""
-    from dragonboat_tpu_torch.core import kernel as K
-
-    orig, seen = K.quorum_match, [0]
+def _tap_k1(module, every: int):
+    """Route ``module``'s K1 call (the step's in core/kernel, the
+    invariant probe's in core/invariants) through a tap that counts every
+    call and clones the inputs of every ``every``-th call (up to
+    K1_TAP_KEEP) before it launches; returns the tap's record and the
+    function that takes the tap out."""
+    orig, rec = module.quorum_match, {"calls": 0, "inputs": []}
 
     def tap(match, voting, quorum):
-        seen[0] += 1
-        if seen[0] % K1_TAP_EVERY == 1 and len(store) < K1_TAP_KEEP:
-            store.append((match.clone(), voting.clone(), quorum.clone()))
+        rec["calls"] += 1
+        if (rec["calls"] - 1) % every == 0 and len(rec["inputs"]) < K1_TAP_KEEP:
+            rec["inputs"].append((match.clone(), voting.clone(), quorum.clone()))
         return orig(match, voting, quorum)
 
-    K.quorum_match = tap
-    return lambda: setattr(K, "quorum_match", orig)
+    module.quorum_match = tap
+    return rec, lambda: setattr(module, "quorum_match", orig)
 
 
-def _k1_tapped(torch, taps) -> dict:
-    """K1 against its plain arm on the inputs the engine path gave it."""
+def _k1_tapped(torch, taps, key: str) -> dict:
+    """K1 against its plain arm on the inputs one call site gave it."""
     from dragonboat_tpu_torch.parallel import fabric_kernels as fk
 
-    check(len(taps) > 0, "no K1 call was tapped on the NodeHost path")
+    check(len(taps) > 0, f"no K1 call was tapped ({key})")
     shapes = sorted({tuple(m.shape) for m, _, _ in taps})
     mism = err = 0
     for m, v, q in taps:
         got, ref = fk.quorum_match(m, v, q), fk.quorum_match_plain(m, v, q)
         mism += int((got != ref).sum())
         err = max(err, max_abs_err(torch, got, ref))
-    return {"k1_tapped_calls": len(taps),
-            "k1_tapped_shapes": json.dumps([list(x) for x in shapes]),
-            "k1_tapped_mismatches": mism, "k1_tapped_max_abs_err": err}
+    return {f"{key}_calls": len(taps),
+            f"{key}_shapes": json.dumps([list(x) for x in shapes]),
+            f"{key}_mismatches": mism, f"{key}_max_abs_err": err}
+
+
+def _time_ticks(store: dict):
+    """Time every engine's decimated ticks (KernelEngine's TICKS methods,
+    wrapped on the class): host ms of each call into ``store``; returns
+    the function that takes the wrappers out."""
+    from dragonboat_tpu_torch.engine.kernel_engine import KernelEngine
+
+    origs = {name: getattr(KernelEngine, name) for name in TICKS}
+
+    def wrap(name, fn):
+        def timed(self):
+            t = time.perf_counter()
+            try:
+                return fn(self)
+            finally:
+                store.setdefault(name, []).append(
+                    (time.perf_counter() - t) * 1e3)
+        return timed
+
+    for name, fn in origs.items():
+        setattr(KernelEngine, name, wrap(name, fn))
+    return lambda: [setattr(KernelEngine, n, f) for n, f in origs.items()]
+
+
+def _tick_stats(store: dict) -> dict:
+    """Per tick kind: calls, median and p90 host ms."""
+    out = {}
+    for name in TICKS:
+        ms = store.get(name, [])
+        short = name.replace("_collect_", "")
+        out[f"{short}_ticks"] = len(ms)
+        out[f"{short}_host_ms_p50"] = float(np.percentile(ms, 50)) if ms else None
+        out[f"{short}_host_ms_p90"] = float(np.percentile(ms, 90)) if ms else None
+    return out
+
+
+def _scrape(addr: str, path: str):
+    """(status, body) of one GET on a host's metrics endpoint."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://{addr}{path}", timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _leader_gauge(text: str) -> int:
+    line = 'fleet_role_count{role="leader"} '
+    return sum(int(float(x[len(line):])) for x in text.splitlines()
+               if x.startswith(line))
+
+
+def _nh_endpoints(hosts, shards, deadline_s=120.0) -> dict:
+    """Every host's metrics endpoint after the writes settled: the leader
+    gauges sum to ``shards`` (the fleet stats are decimated: wait for a
+    tick that saw every leader), /healthz answers 200, /debug/groups and
+    /debug/group/<id> pass the port's validators, the device row equals
+    the engine's health_row (both read with the engines paused), no
+    invariant violation was ever seen, every tick kind ran."""
+    from dragonboat_tpu_torch.core import health
+    from dragonboat_tpu_torch.engine.kernel_engine import KernelEngine
+
+    t0 = time.perf_counter()
+    while True:
+        gauges = [_leader_gauge(_scrape(nh.metrics_address, "/metrics")[1]
+                                .decode()) for nh in hosts.values()]
+        if sum(gauges) == shards:
+            break
+        check(time.perf_counter() - t0 < deadline_s,
+              f"/metrics leader gauges {gauges} never summed to {shards}")
+        time.sleep(1.0)
+    gauge_s = time.perf_counter() - t0
+    for r, nh in hosts.items():
+        status, body = _scrape(nh.metrics_address, "/healthz")
+        if status != 200:
+            say("nodehost_healthz_degraded", host=r, status=status,
+                body=body.decode()[:2000])
+        check(status == 200, f"host {r}: /healthz answered {status}")
+    groups = shard_count = 0
+    for r, nh in hosts.items():
+        status, body = _scrape(nh.metrics_address, "/debug/groups")
+        check(status == 200, f"host {r}: /debug/groups answered {status}")
+        shard_count = health.validate_info(json.loads(body))
+        check(shard_count == shards, f"host {r}: /debug/groups lists {shard_count}")
+        groups += 1
+    sid = shards // 2
+    rows_equal = 0
+    for r, nh in hosts.items():
+        eng = nh.kernel_engine
+        with KernelEngine._step_mu:
+            status, body = _scrape(nh.metrics_address, f"/debug/group/{sid}")
+            row = eng.health_row(eng.by_shard[sid].lane)
+        check(status == 200, f"host {r}: /debug/group/{sid} answered {status}")
+        info = json.loads(body)
+        health.validate_shard_info(info)
+        check(info["device"] == row, f"host {r}: device row {info['device']} != {row}")
+        rows_equal += 1
+    seqs = []
+    for r, nh in hosts.items():
+        eng = nh.kernel_engine
+        last = eng.last_invariants
+        check(last is not None and last["total"] == 0
+              and last["violations_seen"] == 0,
+              f"host {r}: invariant violations {last}")
+        seqs.append((eng._health_seq, eng._inv_seq, eng._capacity_seq))
+        check(min(seqs[-1]) > 0, f"host {r}: a reduction never ticked {seqs[-1]}")
+    return {"leader_gauges": json.dumps(gauges), "gauge_wait_s": gauge_s,
+            "healthz_200": len(hosts), "debug_groups_valid": groups,
+            "debug_group_rows_equal": rows_equal,
+            "violations_seen": 0,
+            "ticks_health_inv_capacity": json.dumps(seqs)}
+
+
+def _struct_np(struct) -> dict:
+    return {f: v.detach().cpu().numpy() for f, v in zip(struct._fields, struct)}
+
+
+def _nh_reductions_vs_cpu(torch, hosts) -> dict:
+    """The four reductions on one engine's snapshot (state, inbox, both
+    digests), on the card and again on CPU copies (plain arms), and the
+    recount oracles on the host: every output and digest leaf equal.  On
+    the card they run under CUDA's sync debug mode "error" (the engines
+    paused): a pass that waited for the device anywhere but in its one
+    fetch, which comes after, would raise."""
+    from dragonboat_tpu_torch import convert
+    from dragonboat_tpu_torch.core import fleet, health
+    from dragonboat_tpu_torch.core import invariants as inv
+    from dragonboat_tpu_torch.engine.kernel_engine import KernelEngine
+
+    eng = hosts[1].kernel_engine
+    with KernelEngine._step_mu, eng.mu:
+        state = type(eng.state)(*(None if v is None else v.clone()
+                                  for v in eng.state))
+        inbox = eng._fleet_inbox_from()
+        hd = type(eng._health_digest)(*(v.clone() for v in eng._health_digest))
+        idg = type(eng._inv_digest)(*(v.clone() for v in eng._inv_digest))
+        th, k = eng.health_thresholds, eng.health_top_k
+    cpu = torch.device("cpu")
+
+    def on(dev):
+        s = type(state)(*(None if v is None else v.to(dev) for v in state))
+        b = inbox.to(dev)
+        h = type(hd)(*(v.to(dev) for v in hd))
+        i = type(idg)(*(v.to(dev) for v in idg))
+        rep, hdig = health.fleet_health(s, b, h, thresholds=th, k=k)
+        irep, idig = inv.check_invariants(s, i)
+        rows = [health.shard_row(s, b, hdig, g, thresholds=th)
+                for g in range(0, eng.capacity, max(1, eng.capacity // 64))]
+        return {"fleet": fleet.fleet_stats(s, b), "health": rep,
+                "health_digest": hdig, "inv": irep, "inv_digest": idig,
+                "rows": rows}
+
+    with KernelEngine._step_mu:
+        torch.cuda.synchronize()
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            card = on(state.term.device)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    host = on(cpu)
+    torch.cuda.synchronize()
+    leaves = 0
+    for key in ("fleet", "health", "health_digest", "inv", "inv_digest"):
+        bad = convert.diff_leaves(_struct_np(host[key]), _struct_np(card[key]))
+        check(not bad, f"reduction {key}: card != CPU at {bad}")
+        leaves += len(host[key])
+    for a, b in zip(host["rows"], card["rows"]):
+        bad = convert.diff_leaves(_struct_np(a), _struct_np(b))
+        check(not bad, f"shard_row: card != CPU at {bad}")
+        leaves += len(a)
+    np_state = type(state)(*(None if v is None else v.cpu().numpy()
+                             for v in state))
+    rec, rec_digest = health.recount(np_state, inbox.cpu().numpy(),
+                                     type(hd)(*(v.cpu().numpy() for v in hd)),
+                                     thresholds=th, k=k)
+    check(health.report_to_dict(card["health"]) == rec, "fleet_health != recount")
+    check({f: v.tolist() for f, v in _struct_np(card["health_digest"]).items()}
+          == rec_digest, "health digest != recount")
+    irec, irec_digest = inv.recount(np_state, type(idg)(*(v.cpu().numpy()
+                                                          for v in idg)))
+    check(inv.report_to_dict(card["inv"]) == irec, "check_invariants != recount")
+    check({f: v.tolist() for f, v in _struct_np(card["inv_digest"]).items()}
+          == irec_digest, "invariant digest != recount")
+    return {"lanes": eng.capacity, "leaves_equal": leaves,
+            "shard_rows": len(card["rows"]), "recount": "equal",
+            "card_sync_debug": "error, none raised",
+            "anomalous": rec["anomalous"], "violations": irec["total"],
+            "checked": irec["checked"]}
+
+
+def _nh_reduction_cost(torch, hosts) -> dict:
+    """Each decimated tick run alone on host 1's engine, the engines
+    paused (the shared step lock held): host ms per call (the wall time of
+    a call, its own fetch included, after a synchronize), and device ms
+    per call (the kernels inside a torch.profiler range around it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from dragonboat_tpu_torch.engine.kernel_engine import KernelEngine
+
+    eng = hosts[1].kernel_engine
+    out = {}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with KernelEngine._step_mu, eng.mu:
+        for name in TICKS:
+            fn = getattr(eng, name)
+            fn()
+            ms = []
+            for _ in range(COST_REPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                ms.append((time.perf_counter() - t) * 1e3)
+            out[f"{name.replace('_collect_', '')}_host_ms"] = statistics.median(ms)
+        with prof:
+            for name in TICKS:
+                for _ in range(COST_REPS):
+                    with record_function(f"tick{name}"):
+                        getattr(eng, name)()
+            torch.cuda.synchronize()
+    dev_us = {}
+    for ev in prof.events():
+        if ev.name.startswith("tick_collect_") and ev.device_type == DeviceType.CPU:
+            dev_us[ev.name] = dev_us.get(ev.name, 0.0) + ev.device_time_total
+    for name in TICKS:
+        out[f"{name.replace('_collect_', '')}_device_ms"] = \
+            dev_us.get(f"tick{name}", 0.0) / 1e3 / COST_REPS
+    out["reps"] = COST_REPS
+    return out
 
 
 def _device_busy(prof) -> dict:
@@ -949,6 +1214,14 @@ def _nh_close(hosts) -> None:
         nh.close()
 
 
+def _reduction_snapshots(eng) -> tuple:
+    """An engine's reduction results and digests, as host values."""
+    digests = tuple(None if d is None else _struct_np(d)
+                    for d in (eng._health_digest, eng._inv_digest))
+    return (eng.last_fleet, eng.last_health, eng.last_invariants,
+            eng._inv_seq) + digests
+
+
 def _nh_parity_run(dev, tag) -> list:
     """One manual-drive script (auto_run=False, one shard, the reference
     engine tests' geometry) on ``dev``: per round, every host's engine
@@ -985,40 +1258,73 @@ def _nh_parity_run(dev, tag) -> list:
                 nh.run_once()
             trace.append([(convert.to_numpy(nh.kernel_engine.state),
                            nh.nodes[1].sm.get_last_applied(),
-                           dict(nh.nodes[1].sm.sm.kv)) for nh in hosts.values()])
+                           dict(nh.nodes[1].sm.sm.kv),
+                           _reduction_snapshots(nh.kernel_engine))
+                          for nh in hosts.values()])
     finally:
         _nh_close(hosts)
     return trace
 
 
-def _nh_cell(torch, dev, tag, one_worker=False, taps=None) -> dict:
+def _nh_cell(torch, dev, tag, one_worker=False, reductions=True,
+             full=False) -> dict:
     """The NodeHost cell at NH_SHARDS x 3: admit, elect, write, read
-    back; launch counts and peak memory over it alone."""
+    back; launch counts (split into K1's call sites), peak memory and the
+    decimated ticks' host ms over it alone.  ``full`` adds, after the
+    counts are read, the K1 taps' comparison, the endpoint checks, the
+    reductions card against CPU, their cost alone and the profile."""
     from dragonboat_tpu_torch import kernels
+    from dragonboat_tpu_torch.core import invariants as inv
+    from dragonboat_tpu_torch.core import kernel as K
 
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    untap = _tap_k1(taps) if taps is not None else None
+    ticks: dict = {}
+    step_tap, untap_step = _tap_k1(K, K1_TAP_EVERY)
+    probe_tap, untap_probe = _tap_k1(inv, 1)
+    untime = _time_ticks(ticks)
+
+    def restore():
+        untap_step()
+        untap_probe()
+        untime()
+
+    extra = {}
     try:
-        hosts = _nh_hosts(tag, NH_SHARDS, dev, one_worker=one_worker)
+        hosts = _nh_hosts(tag, NH_SHARDS, dev, one_worker=one_worker,
+                          reductions=reductions, metrics=full)
         admit_s = time.perf_counter() - t0
         try:
-            st = _nh_serve(hosts, NH_SHARDS)
-            torch.cuda.synchronize()
-            launches = dict(kernels.launches)
-            peak = torch.cuda.max_memory_allocated()
-            prof = _nh_profile(torch, hosts, NH_SHARDS) if taps is not None else None
+            try:
+                st = _nh_serve(hosts, NH_SHARDS)
+                torch.cuda.synchronize()
+                launches = dict(kernels.launches)
+                calls = (step_tap["calls"], probe_tap["calls"])
+                tick_stats = _tick_stats(ticks)
+                peak = torch.cuda.max_memory_allocated()
+            finally:
+                restore()
+            if full:
+                extra["k1"] = {
+                    **_k1_tapped(torch, step_tap["inputs"], "k1_tapped"),
+                    **_k1_tapped(torch, probe_tap["inputs"], "k1_probe_tapped")}
+                extra["endpoints"] = _nh_endpoints(hosts, NH_SHARDS)
+                extra["reductions"] = _nh_reductions_vs_cpu(torch, hosts)
+                extra["cost"] = _nh_reduction_cost(torch, hosts)
+                extra["profile"] = _nh_profile(torch, hosts, NH_SHARDS)
         finally:
             _nh_close(hosts)
     finally:
-        if untap is not None:
-            untap()
+        restore()
     return {"engine": "one step worker" if one_worker else "EngineConfig()",
-            "admit_s": admit_s, **st, "k1_launches": launches["quorum_match"],
+            "reductions": "on" if reductions else "off",
+            "admit_s": admit_s, **st, **tick_stats,
+            "k1_launches": launches["quorum_match"],
+            "k1_step_calls": calls[0], "k1_probe_calls": calls[1],
             "launches": json.dumps(launches, separators=(",", ":")),
-            "max_memory_allocated": peak, "profile": prof,
+            "max_memory_allocated": peak, "extra": extra,
             "seconds": time.perf_counter() - t0}
 
 
@@ -1026,48 +1332,67 @@ def phase_nodehost(torch, dev, smi: str) -> int:
     from dragonboat_tpu_torch import convert
 
     tag = f"smk{time.monotonic_ns()}"
-    taps: list = []
-    st = _nh_cell(torch, dev, tag, taps=taps)
-    prof = st.pop("profile")
-    tapped = _k1_tapped(torch, taps)
-    say("nodehost", shards=NH_SHARDS, replicas=3, hosts=3, **st, **tapped,
+    st = _nh_cell(torch, dev, tag, full=True)
+    extra = st.pop("extra")
+    say("nodehost", shards=NH_SHARDS, replicas=3, hosts=3, **st, **extra["k1"],
         card=json.dumps(smi))
+    say("nodehost_endpoints", **extra["endpoints"])
+    say("nodehost_reductions", card_vs_cpu="equal", **extra["reductions"])
+    say("nodehost_reduction_cost", **extra["cost"], card=json.dumps(smi))
+    prof = extra["profile"]
     say("nodehost_profile", **{k: json.dumps(v) if isinstance(v, list) else v
                                for k, v in prof.items()})
     check(st["acked"] == NH_SHARDS * NH_WRITES, "not every write acknowledged")
-    check(st["k1_launches"] > 0, "K1 was not launched on the NodeHost path")
-    check(tapped["k1_tapped_mismatches"] == 0,
-          "K1 disagrees with its plain arm on the NodeHost path's inputs")
+    check(st["k1_step_calls"] > 0, "K1 was not launched by the engine's step")
+    check(st["k1_probe_calls"] > 0, "K1 was not launched by the invariant probe")
+    check(st["k1_step_calls"] + st["k1_probe_calls"] == st["k1_launches"],
+          "K1's launches are not the step's and the probe's calls")
+    for key in ("k1_tapped_mismatches", "k1_probe_tapped_mismatches"):
+        check(extra["k1"][key] == 0, f"K1 disagrees with its plain arm ({key})")
     check(prof["acked"] == prof["writes"], "profiled writes not all acknowledged")
     k1 = st["k1_launches"]
 
     t1 = time.perf_counter()
     hosts = _nh_hosts(f"{tag}d1", NH_DEPTH1_SHARDS, dev, depth=1)
+    admit_s = time.perf_counter() - t1
     try:
         d1 = _nh_serve(hosts, NH_DEPTH1_SHARDS)
         overlapped = sum(nh.events.metrics.snapshot().get(
             "engine.pipeline.overlapped", 0) for nh in hosts.values())
+        d1_inv = [nh.kernel_engine.last_invariants for nh in hosts.values()]
     finally:
+        c0 = time.perf_counter()
         _nh_close(hosts)
-    say("nodehost_depth1", shards=NH_DEPTH1_SHARDS, **d1,
-        overlapped=overlapped, seconds=time.perf_counter() - t1)
+    say("nodehost_depth1", shards=NH_DEPTH1_SHARDS, admit_s=admit_s, **d1,
+        overlapped=overlapped,
+        violations_seen=sum(d["violations_seen"] for d in d1_inv if d),
+        close_s=time.perf_counter() - c0, seconds=time.perf_counter() - t1)
     check(d1["acked"] == NH_DEPTH1_SHARDS * NH_WRITES,
           "depth 1: not every write acknowledged")
     check(overlapped > 0, "depth 1: no step overlapped")
+    check(all(d is not None and d["violations_seen"] == 0 for d in d1_inv),
+          f"depth 1: invariant probe {d1_inv}")
 
     t2 = time.perf_counter()
     cpu = _nh_parity_run(torch.device("cpu"), f"{tag}pc")
     card = _nh_parity_run(dev, f"{tag}pg")
     for i, (a, b) in enumerate(zip(cpu, card)):
-        for r, ((sa, ap_a, kv_a), (sb, ap_b, kv_b)) in enumerate(zip(a, b)):
+        for r, ((sa, ap_a, kv_a, ra), (sb, ap_b, kv_b, rb)) in enumerate(zip(a, b)):
             bad = convert.diff_leaves(sa, sb)
             check(not bad, f"card != CPU at round {i}, host {r + 1}: {bad}")
             check((ap_a, kv_a) == (ap_b, kv_b),
                   f"card != CPU SM at round {i}, host {r + 1}")
+            check(ra[:4] == rb[:4], f"card != CPU reductions at round {i}, host {r + 1}")
+            for da, db in zip(ra[4:], rb[4:]):
+                check((da is None) == (db is None)
+                      and (da is None or not convert.diff_leaves(da, db)),
+                      f"card != CPU digests at round {i}, host {r + 1}")
     applied = max(x[1] for x in card[-1])
     check(applied > 0, "parity script applied nothing")
+    probes = card[-1][0][3][3]
+    check(probes > 0, "parity script took no reduction tick")
     say("nodehost_parity", rounds=NH_PARITY_ROUNDS, card_vs_cpu="equal",
-        applied=applied, seconds=time.perf_counter() - t2)
+        applied=applied, probe_ticks=probes, seconds=time.perf_counter() - t2)
     return k1
 
 
@@ -1079,9 +1404,24 @@ def compare_workers(torch, dev, rounds: int) -> int:
     tag = f"cmp{time.monotonic_ns()}"
     for i, one in enumerate((False, True) * rounds):
         st = _nh_cell(torch, dev, f"{tag}-{i}", one_worker=one)
-        st.pop("profile")
+        st.pop("extra")
         say("nodehost_compare", run=i, **st)
         check(st["acked"] == NH_SHARDS * NH_WRITES, "not every write acknowledged")
+    return 0
+
+
+def compare_reductions(torch, dev, rounds: int) -> int:
+    """``python3 chip_smoke.py --compare-reductions [ROUNDS]``: the
+    NodeHost cell with the three reductions on (the default ExpertConfig)
+    and off, in turn, ROUNDS times each (2 unless given), one line per
+    run.  Not part of the default run."""
+    tag = f"cmr{time.monotonic_ns()}"
+    for i, on in enumerate((True, False) * rounds):
+        st = _nh_cell(torch, dev, f"{tag}-{i}", reductions=on)
+        st.pop("extra")
+        say("nodehost_reductions_compare", run=i, **st)
+        check(st["acked"] == NH_SHARDS * NH_WRITES, "not every write acknowledged")
+        check((st["k1_probe_calls"] > 0) == on, "probe launches do not match the setting")
     return 0
 
 
@@ -1106,6 +1446,8 @@ def main() -> int:
     phase_build()
     if sys.argv[1:2] == ["--compare-workers"]:
         return compare_workers(torch, dev, int((sys.argv[2:] or ["2"])[0]))
+    if sys.argv[1:2] == ["--compare-reductions"]:
+        return compare_reductions(torch, dev, int((sys.argv[2:] or ["2"])[0]))
     rows = phase_kernels(torch, dev)
     phase_parity(torch, dev)
     launches = phase_slice(torch, dev)

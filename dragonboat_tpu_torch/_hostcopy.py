@@ -8,9 +8,10 @@ own copies of these modules, byte for byte the reference's except that the
 rewrites that touch comments and docstrings only: citations of the Go
 reference checkout drop its absolute location (``reference/raftpb/...``),
 and the JAX package's change numbers read ``round N``.  The
-modules that touch JAX (``tracing``, ``capacity``, the device reductions'
-host parts, ``engine/dispatch``, ``engine/kernel_engine``, ``nodehost``) are
-ported by hand and are not listed here.
+modules that touch JAX (``tracing``, ``capacity``, the device reductions
+``core/fleet``, ``core/health`` and ``core/invariants``, ``engine/dispatch``,
+``engine/kernel_engine``, ``nodehost``) are ported by hand and are not
+listed here.
 
     python -m dragonboat_tpu_torch._hostcopy          # rewrite the copies
     python -m dragonboat_tpu_torch._hostcopy --check  # exit 1 on drift
@@ -40,7 +41,8 @@ MODULES = (
     "logdb/sharded", "logdb/logreader",
     "rsm/__init__", "rsm/statemachine", "rsm/encoded", "rsm/session",
     "rsm/membership", "rsm/snapshotio", "rsm/chunkwriter", "rsm/gosnapshot",
-    "server/__init__", "server/env", "server/rate", "server/settings",
+    "server/__init__", "server/env", "server/metrics_http", "server/rate",
+    "server/settings",
     "transport/__init__", "transport/chan", "transport/chunks",
     "transport/hub",
     "node", "engine/__init__", "engine/apply_pool",

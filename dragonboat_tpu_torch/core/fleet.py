@@ -1,30 +1,27 @@
-"""Fleet telemetry: the host-side part.
+"""Device-side fleet telemetry reduction over the batched ShardState.
 
-The reference reduces the batched ``ShardState`` on the device into one
-small ``FleetStats`` struct every ``fleet_stats_every`` steps.  The port
-keeps the host side of it, which ``NodeHost`` and ``KernelEngine`` use at
-construction and at scrape time: the struct's layout and contract, the
-dict form (``stats_to_dict``, ``empty_dict``, ``merge_into``,
-``add_host_shard``) and the callback-gauge registration
-(``register_exposition``).  The device reduction (the reference's
-``fleet_stats``) is ROADMAP.md Queue 1 item 7; until it lands the port's
-``KernelEngine`` refuses a nonzero ``fleet_stats_every`` at construction.
+The port of the reference's ``core/fleet.py``.  At 10^4–10^5 lanes, "how
+many shards are leaderless right now" must not be answered by iterating
+shards on host — one vectorized reduction over the resident ``ShardState``
+(plain PyTorch tensor ops on the state's device; the reference's XLA ops)
+produces a single small ``FleetStats`` struct, and a decimation knob on
+the engines (``fleet_stats_every``) bounds the host transfer to one struct
+every N steps, fetched in one crossing (``stats_to_dict``).
+
+The host-side helpers below turn a fetched struct into plain dicts and
+register callback gauges on a ``telemetry.Registry`` so the /metrics
+endpoint exposes ``fleet_role_count{role=...}`` and the cumulative lag /
+inbox-occupancy bucket families.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-
-def _to_host(struct):
-    """A struct of tensors with every leaf fetched to a numpy array."""
-    return type(struct)(*(np.asarray(v.detach().cpu())
-                          if isinstance(v, torch.Tensor) else v
-                          for v in struct))
-
+from dragonboat_tpu_torch.core import params as P
+from dragonboat_tpu_torch.devices import fetch_struct
 
 NUM_ROLES = 6
 # index == the params.py role constant (FOLLOWER=0 .. WITNESS=5)
@@ -77,10 +74,49 @@ class FleetStats(NamedTuple):
     inbox_hist: torch.Tensor       # [len(INBOX_BUCKETS)+1] cumulative
 
 
+def fleet_stats(state, inbox_from: torch.Tensor) -> FleetStats:
+    """One reduction over the resident state (the reference's
+    ``_fleet_stats_impl``): ``inbox_from [G, K]`` i32 on the state's
+    device.  Every leaf is i32 (torch sums of bool and i32 widen to i64,
+    so each sum names its dtype).  The bucket bounds are compared as
+    Python ints, so the pass copies nothing from the host."""
+    i32 = torch.int32
+    dev = state.role.device
+    occ = (state.kind != P.K_ABSENT).any(dim=1)               # [G] bool
+    occ_i = occ.to(i32)
+    occupied = occ_i.sum(dtype=i32)
+    roles = torch.arange(NUM_ROLES, dtype=state.role.dtype, device=dev)
+    role_count = (occ_i[:, None]
+                  * (state.role[:, None] == roles[None, :]).to(i32)
+                  ).sum(dim=0, dtype=i32)
+    leaderless = (occ & (state.leader == P.NO_LEADER)).sum(dtype=i32)
+    election_active = (occ & ((state.role == P.CANDIDATE)
+                              | (state.role == P.PRE_VOTE_CANDIDATE))
+                       ).sum(dtype=i32)
+    quiesced = (occ & state.quiesced).sum(dtype=i32)
+    big = torch.iinfo(i32).max
+    term_max = torch.where(occ, state.term, 0).max()
+    term_min = torch.where(occupied > 0,
+                           torch.where(occ, state.term, big).min(), 0)
+    lag = state.committed - state.applied                     # [G] i32
+    lag_le = (torch.stack([lag <= b for b in LAG_BUCKETS], dim=1)
+              & occ[:, None]).sum(dim=0, dtype=i32)
+    lag_hist = torch.cat([lag_le, occupied[None]])
+    inbox_occ = (inbox_from != 0).sum(dim=1, dtype=i32)      # [G]
+    inbox_le = (torch.stack([inbox_occ <= b for b in INBOX_BUCKETS], dim=1)
+                & occ[:, None]).sum(dim=0, dtype=i32)
+    inbox_hist = torch.cat([inbox_le, occupied[None]])
+    return FleetStats(
+        occupied=occupied, role_count=role_count, leaderless=leaderless,
+        election_active=election_active, quiesced=quiesced,
+        term_max=term_max,
+        term_min=term_min, lag_hist=lag_hist, inbox_hist=inbox_hist)
+
+
 def stats_to_dict(stats: FleetStats) -> dict:
-    """Fetch to host and flatten into plain ints/dicts — the shape the
-    callback gauges (and ``engine.last_fleet``) serve."""
-    s = _to_host(stats)
+    """Fetch to host (one crossing) and flatten into plain ints/dicts — the
+    shape the callback gauges (and ``engine.last_fleet``) serve."""
+    s = fetch_struct(stats)
     lag_labels = bucket_labels(LAG_BUCKETS)
     inbox_labels = bucket_labels(INBOX_BUCKETS)
     return {

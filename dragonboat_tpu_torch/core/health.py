@@ -1,32 +1,52 @@
-"""Anomaly health: the host-side part.
+"""Device-side fleet health engine: anomaly classification + top-K triage.
 
-The reference classifies every group on the device (leaderless, commit
-stall, lag divergence, churn, runaway term) and ranks the worst K into a
-``HealthReport`` every ``fleet_stats_every`` steps.  The port keeps the
-host side of it: the class names and thresholds (``HealthThresholds``,
-``DEFAULT_THRESHOLDS``), the struct layouts and contracts, the dict forms
-(``report_to_dict``, ``row_to_dict``, ``empty_dict``, ``merge_into``), the
-callback-gauge registration and the schema validators.  The device
-reductions (the reference's ``fleet_health`` and ``shard_row``) and their
-numpy ``recount`` oracle are ROADMAP.md Queue 1 item 7; until
-they land the port's ``KernelEngine`` refuses a nonzero ``health_top_k``
-at construction.
+The port of the reference's ``core/health.py``: the passes below are plain
+PyTorch tensor ops on the state's device (the reference's are XLA ops under
+``jax.jit``).
+
+``core/fleet.py`` answers "what does the fleet look like" with aggregate
+histograms; this module answers "which groups are sick and why".  At
+10^4–10^6 lanes neither question may be answered by iterating shards on
+host, so the detection runs where the state lives: one pass over
+the batched ``ShardState`` classifies every group into the anomaly
+taxonomy below, carrying a compact fixed-width per-group ``HealthDigest``
+(previous commit/applied/term/leader plus consecutive-tick counters)
+between decimated health ticks, then reduces device-side to per-class
+counts plus a top-K worst-offender list — so only O(K) bytes cross the
+host boundary regardless of the group count.
+
+Anomaly classes (bit ``c`` of a group's ``flags`` word):
+
+- ``leaderless``      — occupied and leaderless for >= N consecutive
+                        health ticks (persisting, not a blip)
+- ``commit_stall``    — work is visibly pending (appended-but-
+                        uncommitted log entries: ``last > committed``)
+                        yet the commit index has been frozen for >= N
+                        ticks.  Inbox occupancy is deliberately NOT the
+                        pending signal — heartbeats keep inboxes
+                        non-empty on a healthy idle fleet
+- ``lag_divergence``  — the commit→apply lag is nonzero and has grown
+                        across >= N consecutive digests
+- ``churn``           — leadership handoffs (leader id changed between
+                        two known leaders) arriving faster than a leaky
+                        bucket drains (inc CHURN_INC, decay 1/tick)
+- ``term_runaway``    — the term has risen on >= N consecutive ticks
+                        (elections spinning without settling)
+
+The digest stays device resident (``part=G``), and the ``HealthReport``
+is the single small host transfer (one crossing, ``report_to_dict``),
+riding the same ``fleet_stats_every`` decimation as FleetStats.  ``recount`` is the pure-python differential
+oracle the tests cross-check against; it takes numpy arrays.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-
-def _to_host(struct):
-    """A struct of tensors with every leaf fetched to a numpy array."""
-    return type(struct)(*(np.asarray(v.detach().cpu())
-                          if isinstance(v, torch.Tensor) else v
-                          for v in struct))
-
+from dragonboat_tpu_torch.core import params as P
+from dragonboat_tpu_torch.devices import fetch_struct
 
 NUM_CLASSES = 5
 CLASS_NAMES = ("leaderless", "commit_stall", "lag_divergence", "churn",
@@ -140,6 +160,98 @@ class HealthReport(NamedTuple):
     worst_rows: torch.Tensor       # [K, ROW_WIDTH] see ROW_FIELDS
 
 
+def empty_digest(num_lanes: int, device=None) -> HealthDigest:
+    """All-zero digest for ``num_lanes`` groups on ``device`` (ticks=0
+    marks every delta-based detector invalid until the first carry).
+    Each field is its own tensor."""
+    return HealthDigest(*(torch.zeros((num_lanes,), dtype=torch.int32,
+                                      device=device)
+                          for _ in HealthDigest._fields))
+
+
+def fleet_health(state, inbox_from: torch.Tensor, digest: HealthDigest,
+                 thresholds: HealthThresholds = DEFAULT_THRESHOLDS,
+                 k: int = DEFAULT_TOP_K
+                 ) -> tuple[HealthReport, HealthDigest]:
+    """One classification pass (the reference's ``_fleet_health_impl``):
+    ``inbox_from [G, K]`` i32 on the state's device; every report and
+    digest leaf is i32."""
+    i32 = torch.int32
+    occ = (state.kind != P.K_ABSENT).any(dim=1)               # [G] bool
+    valid = digest.ticks > 0                                  # [G] bool
+    lag = state.committed - state.applied                     # [G] i32
+    prev_lag = digest.prev_committed - digest.prev_applied
+    inbox_occ = (inbox_from != 0).sum(dim=1, dtype=i32)      # [G]
+    pending = state.last > state.committed
+
+    leaderless = occ & (state.leader == P.NO_LEADER)
+    leaderless_ticks = torch.where(leaderless, digest.leaderless_ticks + 1, 0)
+
+    stalled = (occ & valid & pending
+               & (state.committed == digest.prev_committed))
+    stall_ticks = torch.where(stalled, digest.stall_ticks + 1, 0)
+
+    diverging = occ & valid & (lag > prev_lag) & (lag > 0)
+    lag_ticks = torch.where(diverging, digest.lag_ticks + 1, 0)
+
+    # a handoff is leader A -> leader B, both known: gaining a first
+    # leader (or regaining one after a leaderless window) is recovery
+    handoff = (occ & valid & (state.leader != digest.prev_leader)
+               & (state.leader != P.NO_LEADER)
+               & (digest.prev_leader != P.NO_LEADER))
+    churn_score = (torch.clamp(digest.churn_score - 1, min=0)
+                   + torch.where(handoff, CHURN_INC, 0).to(i32))
+
+    rising = occ & valid & (state.term > digest.prev_term)
+    runaway_ticks = torch.where(rising, digest.runaway_ticks + 1, 0)
+
+    flag_mat = torch.stack([
+        leaderless_ticks >= thresholds.leaderless_ticks,
+        stall_ticks >= thresholds.stall_ticks,
+        lag_ticks >= thresholds.lag_ticks,
+        churn_score >= thresholds.churn_trip,
+        runaway_ticks >= thresholds.runaway_ticks,
+    ], dim=1).to(i32)                                         # [G, C]
+    class_count = flag_mat.sum(dim=0, dtype=i32)              # [C]
+    bits = 1 << torch.arange(NUM_CLASSES, dtype=i32, device=flag_mat.device)
+    flags = (flag_mat * bits[None, :]).sum(dim=1, dtype=i32)  # [G]
+    any_flag = flags > 0
+    anomalous = any_flag.sum(dtype=i32)
+    leaderless_now = leaderless.sum(dtype=i32)
+
+    score = (leaderless_ticks * _W_LEADERLESS + stall_ticks * _W_STALL
+             + lag_ticks * _W_LAG + churn_score * _W_CHURN
+             + runaway_ticks * _W_RUNAWAY)
+    score = torch.where(any_flag, score, 0)
+    # lax.top_k breaks ties toward the lower index and torch.topk does
+    # not: a stable descending sort keeps equal scores in lane order, and
+    # its first k are the triage list (k clamps to G, as the reference's)
+    k = min(int(k), score.shape[0])
+    order = torch.sort(score, descending=True, stable=True).indices[:k]
+    worst_score = score[order]
+    worst_idx = order.to(i32)
+    rows = torch.stack([flags, score, state.term, state.leader,
+                        state.committed, state.applied, lag, inbox_occ,
+                        leaderless_ticks, stall_ticks, lag_ticks,
+                        churn_score, runaway_ticks], dim=1)   # [G, RW]
+    worst_rows = rows[order]                                  # [K, RW]
+
+    report = HealthReport(
+        class_count=class_count, anomalous=anomalous,
+        leaderless_now=leaderless_now, worst_idx=worst_idx,
+        worst_score=worst_score, worst_rows=worst_rows)
+    # the prev columns are copies: a later out-of-place host write into the
+    # state never reaches them, and neither can an in-place one
+    new_digest = HealthDigest(
+        prev_committed=state.committed.clone(),
+        prev_applied=state.applied.clone(),
+        prev_term=state.term.clone(), prev_leader=state.leader.clone(),
+        leaderless_ticks=leaderless_ticks, stall_ticks=stall_ticks,
+        lag_ticks=lag_ticks, churn_score=churn_score,
+        runaway_ticks=runaway_ticks, ticks=digest.ticks + 1)
+    return report, new_digest
+
+
 class ShardRow(NamedTuple):
     """One group's introspection row: O(1) scalars, never the full
     state (see CONTRACTS)."""
@@ -164,9 +276,47 @@ class ShardRow(NamedTuple):
     runaway_ticks: torch.Tensor
 
 
+def shard_row(state, inbox_from: torch.Tensor, digest: HealthDigest,
+              lane: int,
+              thresholds: HealthThresholds = DEFAULT_THRESHOLDS) -> ShardRow:
+    """ONE group's row (the reference's ``_shard_row_impl``), every leaf
+    an i32 scalar tensor on the state's device.  The anomaly flags reuse
+    the digest's post-tick counters, so they agree with the report of the
+    most recent health tick."""
+    i32 = torch.int32
+    lane = int(lane)
+
+    def pick(arr):
+        return arr[lane]
+
+    counters = {f: pick(getattr(digest, f))
+                for f in ("leaderless_ticks", "stall_ticks", "lag_ticks",
+                          "churn_score", "runaway_ticks")}
+    trips = (
+        counters["leaderless_ticks"] >= thresholds.leaderless_ticks,
+        counters["stall_ticks"] >= thresholds.stall_ticks,
+        counters["lag_ticks"] >= thresholds.lag_ticks,
+        counters["churn_score"] >= thresholds.churn_trip,
+        counters["runaway_ticks"] >= thresholds.runaway_ticks,
+    )
+    flags = torch.stack(trips).to(i32)
+    flags = (flags << torch.arange(NUM_CLASSES, dtype=i32,
+                                   device=flags.device)).sum(dtype=i32)
+    return ShardRow(
+        role=pick(state.role), term=pick(state.term),
+        vote=pick(state.vote), leader=pick(state.leader),
+        committed=pick(state.committed), applied=pick(state.applied),
+        last=pick(state.last), stable=pick(state.stable),
+        processed=pick(state.processed), snap_index=pick(state.snap_index),
+        snap_term=pick(state.snap_term),
+        inbox_occ=(pick(inbox_from) != 0).sum(dtype=i32),
+        flags=flags, **counters)
+
+
 def row_to_dict(row: ShardRow) -> dict:
-    """Fetch the O(1) row to host and decode the class bitmask."""
-    r = _to_host(row)
+    """Fetch the O(1) row to host (one crossing) and decode the class
+    bitmask."""
+    r = fetch_struct(row)
     d = {f: int(getattr(r, f)) for f in ShardRow._fields}
     d["classes"] = [CLASS_NAMES[c] for c in range(NUM_CLASSES)
                     if (d["flags"] >> c) & 1]
@@ -182,7 +332,7 @@ def report_to_dict(report: HealthReport) -> dict:
     """Fetch to host and flatten into plain ints/dicts — the shape the
     callback gauges (and ``engine.last_health``) serve.  Healthy top-K
     padding (score 0) is dropped from ``worst``."""
-    r = _to_host(report)
+    r = fetch_struct(report)
     worst = []
     for j in range(len(r.worst_idx)):
         sc = int(r.worst_score[j])
@@ -377,3 +527,95 @@ def validate_shard_info(obj: dict, where: str = "/debug/group") -> None:
         for c in _req(dev, "classes", list, f"{where}.device"):
             if c not in CLASS_NAMES:
                 raise ValueError(f"{where}.device.classes: {c!r}")
+
+
+# ---------------------------------------------------------------------------
+# pure-python differential oracle
+# ---------------------------------------------------------------------------
+
+
+def recount(state, inbox_from, digest,
+            thresholds: HealthThresholds = DEFAULT_THRESHOLDS,
+            k: int = DEFAULT_TOP_K) -> tuple[dict, dict]:
+    """Recompute ``fleet_health`` with per-group host loops over fetched
+    numpy arrays (fetch the inputs to the host first).  Returns
+    ``(report_dict, digest_dict)`` where report_dict matches
+    ``report_to_dict`` and digest_dict maps HealthDigest field -> list.
+    This is the oracle the randomized differential and the chaos
+    detector cross-check cite."""
+    G = len(digest.ticks)
+    out = {f: [0] * G for f in HealthDigest._fields}
+    per_group = []
+    counts = [0] * NUM_CLASSES
+    anomalous = 0
+    leaderless_now = 0
+    for g in range(G):
+        occ = any(int(kv) != P.K_ABSENT for kv in state.kind[g])
+        valid = int(digest.ticks[g]) > 0
+        committed = int(state.committed[g])
+        applied = int(state.applied[g])
+        term = int(state.term[g])
+        leader = int(state.leader[g])
+        lag = committed - applied
+        prev_lag = int(digest.prev_committed[g]) - int(digest.prev_applied[g])
+        inbox_occ = sum(1 for v in inbox_from[g] if int(v) != 0)
+        pend = int(state.last[g]) > committed
+
+        leaderless = occ and leader == P.NO_LEADER
+        lt = int(digest.leaderless_ticks[g]) + 1 if leaderless else 0
+        stalled = (occ and valid and pend
+                   and committed == int(digest.prev_committed[g]))
+        st = int(digest.stall_ticks[g]) + 1 if stalled else 0
+        diverging = occ and valid and lag > prev_lag and lag > 0
+        gt = int(digest.lag_ticks[g]) + 1 if diverging else 0
+        handoff = (occ and valid and leader != int(digest.prev_leader[g])
+                   and leader != P.NO_LEADER
+                   and int(digest.prev_leader[g]) != P.NO_LEADER)
+        cs = max(int(digest.churn_score[g]) - 1, 0) \
+            + (CHURN_INC if handoff else 0)
+        rising = occ and valid and term > int(digest.prev_term[g])
+        rt = int(digest.runaway_ticks[g]) + 1 if rising else 0
+
+        tripped = (lt >= thresholds.leaderless_ticks,
+                   st >= thresholds.stall_ticks,
+                   gt >= thresholds.lag_ticks,
+                   cs >= thresholds.churn_trip,
+                   rt >= thresholds.runaway_ticks)
+        flags = sum(1 << c for c in range(NUM_CLASSES) if tripped[c])
+        for c in range(NUM_CLASSES):
+            counts[c] += int(tripped[c])
+        score = (lt * _W_LEADERLESS + st * _W_STALL + gt * _W_LAG
+                 + cs * _W_CHURN + rt * _W_RUNAWAY) if flags else 0
+        if flags:
+            anomalous += 1
+        if leaderless:
+            leaderless_now += 1
+
+        row = dict(zip(ROW_FIELDS, (flags, score, term, leader, committed,
+                                    applied, lag, inbox_occ, lt, st, gt,
+                                    cs, rt)))
+        per_group.append((score, g, row))
+        new = dict(prev_committed=committed, prev_applied=applied,
+                   prev_term=term, prev_leader=leader, leaderless_ticks=lt,
+                   stall_ticks=st, lag_ticks=gt, churn_score=cs,
+                   runaway_ticks=rt, ticks=int(digest.ticks[g]) + 1)
+        for f, v in new.items():
+            out[f][g] = v
+
+    per_group.sort(key=lambda t: (-t[0], t[1]))
+    worst = []
+    for score, g, row in per_group[:k]:
+        if score <= 0:
+            continue
+        entry = {"lane": g}
+        entry.update(row)
+        entry["classes"] = [CLASS_NAMES[c] for c in range(NUM_CLASSES)
+                            if (row["flags"] >> c) & 1]
+        worst.append(entry)
+    report = {
+        "class_count": dict(zip(CLASS_NAMES, counts)),
+        "anomalous": anomalous,
+        "leaderless_now": leaderless_now,
+        "worst": worst,
+    }
+    return report, out

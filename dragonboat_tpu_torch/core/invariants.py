@@ -1,52 +1,69 @@
-"""Protocol-invariant probe: the host-side part.
+"""Runtime protocol-invariant probe: the third leg of the safety verifier.
 
-The reference evaluates the protocol invariants its ``core/kstate.py``
-declares on every group of the live fleet, on the device, every
-``fleet_stats_every`` steps, and fetches one ``InvariantReport``.  The
-port keeps the host side of it: the invariant names (in declaration
-order, the bit order of ``first_mask``), the struct layouts and
-contracts, the dict forms (``report_to_dict``, ``empty_dict``,
-``merge_into``), the callback-gauge registration and the validator.  The
-device probe (the reference's ``check_invariants``) and its pure-python
-oracle (``eval_row`` / ``recount``, which need the invariant grammar) are
-ROADMAP.md Queue 1 item 7; until they land the port's ``KernelEngine``
-refuses ``invariant_probe=True`` at construction.
+The port of the reference's ``core/invariants.py``: the probe below is plain
+PyTorch tensor ops on the state's device (the reference's are XLA ops under
+``jax.jit``), and its ``quorum(match)`` term launches K1
+(``parallel/fabric_kernels.quorum_match``) on the card.
+
+``core/kstate.py`` declares the protocol invariants (INVARIANTS, grammar
+in ``analysis/common.py``); this module evaluates them on the LIVE fleet.
+One pass over the batched ``ShardState`` checks every declared
+invariant on every group, carrying a compact per-group
+``InvariantDigest`` (the ``prev.``-referenced columns plus an age
+counter) between decimated probe ticks so STEP-scoped invariants
+(term/commit monotonicity, vote-at-most-once, quorum-backed commit
+advance) are checked over the transition between two observations —
+sound for the monotone/guarded forms kstate.py declares, at any
+decimation.  The ``InvariantReport`` is the single O(1) host transfer:
+a violation total, per-invariant counts, and the first-offender lane +
+its violation bitmask, fetched in one crossing (``report_to_dict``).
+
+A nonzero total is ALWAYS a bug — either in the kernel or in the
+declared invariant — never an operational condition: the engines raise
+an ``invariant_violation`` flight event and ``/healthz`` degrades to
+503.  The reference's other two legs consume the same declarations
+statically (its ``analysis/safety.py`` and ``scripts/model_check.py``).
+
+``eval_row`` / ``recount`` are the pure-python oracle the tests
+cross-check against; ``recount`` takes numpy arrays.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
-#: the invariants the reference's core/kstate.py declares (INVARIANTS), in
-#: declaration order — the bit order of ``InvariantReport.first_mask``
-INVARIANT_NAMES = (
-    "commit_within_log", "processed_within_commit",
-    "applied_within_processed", "term_monotone", "commit_monotone",
-    "vote_once_per_term", "leader_commit_quorum", "quiesced_no_campaign",
-    "quiesced_no_vote",
-)
+from dragonboat_tpu_torch.analysis.common import Invariant, parse_invariants
+from dragonboat_tpu_torch.core import params as P
+from dragonboat_tpu_torch.core.kstate import INVARIANTS as _SPECS
+from dragonboat_tpu_torch.devices import fetch_struct
+from dragonboat_tpu_torch.parallel.fabric_kernels import quorum_match
 
-
-def _to_host(struct):
-    """A struct of tensors with every leaf fetched to a numpy array."""
-    return type(struct)(*(np.asarray(v.detach().cpu())
-                          if isinstance(v, torch.Tensor) else v
-                          for v in struct))
-
-
+#: parsed invariants, declaration order (the bit order of first_mask)
+PARSED: dict[str, Invariant] = parse_invariants(
+    _SPECS, "core/kstate.py:INVARIANTS")
+INVARIANT_NAMES = tuple(PARSED)
 NUM_INVARIANTS = len(INVARIANT_NAMES)
 
 INT32_MAX = 2**31 - 1
 
 #: ShardState columns carried as ``prev_*`` digest fields — must cover
-#: every ``prev.`` term any declared invariant references (the reference
-#: checks it at import against the parsed invariants; the port's check
-#: comes with the probe, item 7)
+#: every ``prev.`` term any declared invariant references (checked below
+#: at import, so adding an invariant with a new prev. field fails loudly
+#: until the digest + CONTRACTS grow the column)
 _PREV_FIELDS = ("term", "vote", "committed", "role", "quiesced",
                 "quiesce_epoch")
+
+_needed = {t.name
+           for inv in PARSED.values()
+           for c in (*inv.guards, inv.conclusion)
+           for t in (c.lhs, c.rhs) if t.kind == "prev"}
+if _needed - set(_PREV_FIELDS):
+    raise ValueError(
+        f"core/invariants.py: INVARIANTS reference prev. fields "
+        f"{sorted(_needed - set(_PREV_FIELDS))} not carried by "
+        "InvariantDigest — add them to _PREV_FIELDS and CONTRACTS")
 
 # Partition contract (grammar: core/kstate.py CONTRACTS; checked by
 # analysis/partition.py and the contracts pass).  The digest is per-group
@@ -97,6 +114,114 @@ class InvariantReport(NamedTuple):
     first_mask: torch.Tensor      # [] that lane's violation bitmask
 
 
+def empty_digest(num_lanes: int, device=None) -> InvariantDigest:
+    """All-zero digest for ``num_lanes`` groups on ``device`` (ticks=0
+    marks every step-scoped invariant vacuous until the first carry).
+    Each field is its own tensor."""
+    return InvariantDigest(*(torch.zeros((num_lanes,), dtype=torch.int32,
+                                         device=device)
+                             for _ in InvariantDigest._fields))
+
+
+#: comparison semantics shared by the probe (tensors), the
+#: pure-python oracle (ints) and the model checker
+OPS = {
+    "<=": lambda a, b: a <= b,
+    ">=": lambda a, b: a >= b,
+    "==": lambda a, b: a == b,
+    "!=": lambda a, b: a != b,
+    "<": lambda a, b: a < b,
+    ">": lambda a, b: a > b,
+}
+
+
+def _quorum_arr(state, col):
+    """Vectorized [G] ``quorum(col)``: the q-th largest value among
+    voting members, q = nv // 2 + 1 — exactly core/kernel.py's commit
+    rule with the leading G axis kept, and so one K1 launch on the card.
+    K1's contract is the reference's sort-and-clip form, rows with no
+    voter included (INT32_MAX)."""
+    i32 = torch.int32
+    voting = (state.kind == P.K_VOTER) | (state.kind == P.K_WITNESS)
+    nv = voting.sum(dim=1, dtype=i32)
+    return quorum_match(col.to(i32).contiguous(), voting.contiguous(),
+                        nv // 2 + 1)
+
+
+def _term_arr(t, state, inv_digest):
+    """One operand: an i32 [G] tensor, or a Python int for a constant
+    (compared against a tensor it broadcasts with no device copy)."""
+    if t.kind == "const":
+        return int(t.value)
+    if t.kind == "param":
+        return int(getattr(P, t.name))
+    if t.kind == "field":
+        return getattr(state, t.name).to(torch.int32)
+    if t.kind == "prev":
+        return getattr(inv_digest, "prev_" + t.name)
+    if t.kind == "quorum":
+        return _quorum_arr(state, getattr(state, t.name))
+    raise ValueError(f"unknown invariant term kind {t.kind!r}")
+
+
+def _compare(c, state, inv_digest, like):
+    """[G] bool of one comparison (a constant-only one broadcast over
+    ``like``'s rows)."""
+    got = OPS[c.op](_term_arr(c.lhs, state, inv_digest),
+                    _term_arr(c.rhs, state, inv_digest))
+    if isinstance(got, bool):
+        return torch.full_like(like, got)
+    return got
+
+
+def _violations(inv: Invariant, state, inv_digest, occ, valid):
+    """[G] bool: rows where ``inv``'s guards all hold but the conclusion
+    does not.  Step-scoped invariants are vacuous without a valid prev."""
+    live = occ & valid if inv.scope == "step" else occ
+    for g in inv.guards:
+        live = live & _compare(g, state, inv_digest, occ)
+    holds = _compare(inv.conclusion, state, inv_digest, occ)
+    return live & ~holds
+
+
+def check_invariants(state, inv_digest: InvariantDigest
+                     ) -> tuple[InvariantReport, InvariantDigest]:
+    """One probe pass (the reference's ``_check_invariants_impl``); every
+    report and digest leaf is i32."""
+    i32 = torch.int32
+    occ = (state.kind != P.K_ABSENT).any(dim=1)               # [G] bool
+    valid = inv_digest.ticks > 0                              # [G] bool
+    viol_mat = torch.stack(
+        [_violations(inv, state, inv_digest, occ, valid)
+         for inv in PARSED.values()], dim=1).to(i32)          # [G, NI]
+    per_invariant = viol_mat.sum(dim=0, dtype=i32)            # [NI]
+    bits = 1 << torch.arange(NUM_INVARIANTS, dtype=i32, device=occ.device)
+    mask = (viol_mat * bits[None, :]).sum(dim=1, dtype=i32)   # [G]
+    bad = mask > 0
+    total = bad.sum(dtype=i32)
+    G = mask.shape[0]
+    lanes = torch.arange(G, dtype=i32, device=occ.device)
+    first = torch.where(bad, lanes, INT32_MAX).min()
+    first_lane = torch.where(total > 0, first, -1)
+    at_first = torch.clamp(first, 0, G - 1).long().reshape(1)
+    first_mask = torch.where(
+        total > 0, mask.gather(0, at_first).reshape(()), 0)
+    report = InvariantReport(
+        total=total, checked=occ.sum(dtype=i32),
+        per_invariant=per_invariant, first_lane=first_lane,
+        first_mask=first_mask)
+    # the prev columns are copies, independent of any later host write
+    # into the state
+    new_digest = InvariantDigest(
+        prev_term=state.term.clone(), prev_vote=state.vote.clone(),
+        prev_committed=state.committed.clone(),
+        prev_role=state.role.clone(),
+        prev_quiesced=state.quiesced.to(i32),
+        prev_quiesce_epoch=state.quiesce_epoch.clone(),
+        ticks=inv_digest.ticks + 1)
+    return report, new_digest
+
+
 # ---------------------------------------------------------------------------
 # host-side converters + exposition
 # ---------------------------------------------------------------------------
@@ -108,9 +233,9 @@ def _decode_mask(mask: int) -> list[str]:
 
 
 def report_to_dict(report: InvariantReport) -> dict:
-    """Fetch to host and flatten into plain ints/dicts — the shape the
-    callback gauges (and ``engine.last_invariants``) serve."""
-    r = _to_host(report)
+    """Fetch to host (one crossing) and flatten into plain ints/dicts —
+    the shape the callback gauges (and ``engine.last_invariants``) serve."""
+    r = fetch_struct(report)
     d = {
         "total": int(r.total),
         "checked": int(r.checked),
@@ -203,3 +328,89 @@ def validate_invariants(d: dict, where: str = "invariants") -> None:
         for n in first.get("invariants", ()):
             if n not in INVARIANT_NAMES:
                 raise ValueError(f"{where}.first: unknown invariant {n!r}")
+
+
+# ---------------------------------------------------------------------------
+# pure-python oracle (tests)
+# ---------------------------------------------------------------------------
+
+
+def quorum_py(match, kind) -> int:
+    """Python mirror of _quorum_arr for one group's [P] rows."""
+    voting = [int(k) in (P.K_VOTER, P.K_WITNESS) for k in kind]
+    mv = sorted(int(m) if v else INT32_MAX for m, v in zip(match, voting))
+    nv = sum(voting)
+    pos = min(max(nv - (nv // 2 + 1), 0), len(mv) - 1)
+    return mv[pos]
+
+
+def _term_row(t, cur: dict, prev: dict | None):
+    if t.kind == "const":
+        return t.value
+    if t.kind == "param":
+        return int(getattr(P, t.name))
+    if t.kind == "field":
+        return int(cur[t.name])
+    if t.kind == "prev":
+        return int(prev[t.name])
+    if t.kind == "quorum":
+        return quorum_py(cur[t.name], cur["kind"])
+    raise ValueError(f"unknown invariant term kind {t.kind!r}")
+
+
+def eval_row(inv: Invariant, cur: dict, prev: dict | None) -> bool:
+    """True iff ``inv`` is VIOLATED on one group's row.  ``cur`` maps
+    ShardState field -> int ([G] columns) or [P] sequence (``match`` /
+    ``kind``); ``prev`` maps prev-field -> int, or None for "no prior
+    observation" (step-scoped invariants pass vacuously)."""
+    if inv.scope == "step" and prev is None:
+        return False
+    for g in inv.guards:
+        if not OPS[g.op](_term_row(g.lhs, cur, prev),
+                         _term_row(g.rhs, cur, prev)):
+            return False
+    c = inv.conclusion
+    return not OPS[c.op](_term_row(c.lhs, cur, prev),
+                         _term_row(c.rhs, cur, prev))
+
+
+def recount(state, inv_digest) -> tuple[dict, dict]:
+    """Recompute ``check_invariants`` with per-group host loops over
+    numpy arrays (fetch the inputs to the host first).  Returns
+    ``(report_dict, digest_dict)`` where report_dict matches
+    ``report_to_dict`` and digest_dict maps InvariantDigest field ->
+    list — the oracle the probe's differential tests cite."""
+    G = len(inv_digest.ticks)
+    counts = {n: 0 for n in INVARIANT_NAMES}
+    total = checked = 0
+    first = None
+    out = {f: [0] * G for f in InvariantDigest._fields}
+    for g in range(G):
+        occ = any(int(k) != P.K_ABSENT for k in state.kind[g])
+        valid = int(inv_digest.ticks[g]) > 0
+        cur = {"kind": [int(v) for v in state.kind[g]]}
+        for f in sorted({f for inv in PARSED.values() for f in inv.fields}):
+            col = getattr(state, f)[g]
+            cur[f] = ([int(v) for v in col] if getattr(col, "ndim", 0)
+                      else int(col))
+        prev = ({f: int(getattr(inv_digest, "prev_" + f)[g])
+                 for f in _PREV_FIELDS} if valid else None)
+        if occ:
+            checked += 1
+        mask = 0
+        for i, inv in enumerate(PARSED.values()):
+            if occ and eval_row(inv, cur, prev):
+                counts[inv.name] += 1
+                mask |= 1 << i
+        if mask:
+            total += 1
+            if first is None:
+                first = {"lane": g, "invariants": _decode_mask(mask)}
+        new = {"prev_" + f: int(getattr(state, f)[g])
+               for f in _PREV_FIELDS}
+        new["ticks"] = int(inv_digest.ticks[g]) + 1
+        for f, v in new.items():
+            out[f][g] = v
+    report = {"total": total, "checked": checked,
+              "per_invariant": counts, "first": first}
+    return report, out

@@ -151,6 +151,69 @@ CONTRACTS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# Protocol invariants (grammar: analysis/common.py parse_invariant).
+#
+# Machine-readable cross-field per-group invariants over ShardState —
+# the Raft safety conditions the vectorized kernel must uphold, in a form
+# all three verifier legs consume:
+#
+#   * analysis/safety.py statically checks every kernel store to a
+#     participating field against these (RS001–RS006),
+#   * scripts/model_check.py asserts them at every state of the
+#     exhaustively explored small scope,
+#   * core/invariants.py evaluates them as a [G] reduction on the live
+#     fleet (the runtime probe; the port's copy of this module runs it).
+#
+# STATE-scoped invariants hold of any single observation; ``prev.`` terms
+# make an invariant STEP-scoped — it constrains a transition (for the
+# runtime probe, a transition between two decimated observations, which is
+# sound for the monotone/guarded forms below).  Deliberately absent:
+# ``stable`` (legitimately lowered when a replicate truncates an unstable
+# suffix) and the snapshot cursors (host-mediated injection moves them
+# non-monotonically by design).
+#
+# Like CONTRACTS this must stay a pure literal (ast.literal_eval).
+# ---------------------------------------------------------------------------
+
+INVARIANTS = {
+    # the commit cursor can never pass the end of the log
+    "commit_within_log": "committed <= last",
+    # entries are released to the apply pipeline only once committed
+    "processed_within_commit": "processed <= committed",
+    # the RSM-confirmed cursor can never pass what was released to it
+    "applied_within_processed": "applied <= processed",
+    # terms are monotonically non-decreasing
+    "term_monotone": "term >= prev.term",
+    # the commit cursor is monotonically non-decreasing
+    "commit_monotone": "committed >= prev.committed",
+    # at most one vote per term: while the term holds still, a cast vote
+    # (nonzero) never changes
+    "vote_once_per_term":
+        "term == prev.term & prev.vote != 0 => vote == prev.vote",
+    # a stable leader advances commit only to quorum-matched indexes.
+    # Guarded on prev.role == LEADER & term == prev.term: a freshly
+    # elected leader's peer match book resets to 0 while its commit
+    # cursor (inherited as follower) may already be ahead — only commit
+    # ADVANCES under stable same-term leadership must be quorum-backed.
+    "leader_commit_quorum":
+        "role == LEADER & prev.role == LEADER & term == prev.term"
+        " & committed > prev.committed => quorum(match) >= committed",
+    # a quiesced replica never campaigns (no term movement) or grants
+    # votes.  quiesce_epoch bumps on every wake, so an unchanged epoch
+    # between two observations proves the lane stayed quiesced for the
+    # WHOLE interval — making both forms sound at any probe decimation
+    # (a wake + re-quiesce between observations changes the epoch and
+    # the guard fails vacuously)
+    "quiesced_no_campaign":
+        "prev.quiesced == 1 & quiesced == 1"
+        " & quiesce_epoch == prev.quiesce_epoch => term == prev.term",
+    "quiesced_no_vote":
+        "prev.quiesced == 1 & quiesced == 1"
+        " & quiesce_epoch == prev.quiesce_epoch => vote == prev.vote",
+}
+
+
 class ShardState(NamedTuple):
     """Per-shard raft state; every field has a leading [G] axis."""
 

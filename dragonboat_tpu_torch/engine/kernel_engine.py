@@ -51,11 +51,13 @@ updates) are out of place (``Tensor.index_put``, as the reference's
 the state it produced, and its retire must see the values it was made
 with.
 
-The three decimated device reductions the reference runs on the engine's
-step cadence (fleet stats, anomaly health, the invariant probe) and the
-capacity tick that rides the same cadence are ROADMAP.md Queue 1 item 7:
-the port's engine refuses ``fleet_stats_every``, ``health_top_k`` and
-``invariant_probe`` turned on at construction.
+Every ``fleet_stats_every`` steps the engine runs the three decimated
+device reductions (``core/fleet``, ``core/health``, ``core/invariants``:
+plain PyTorch tensor ops on the state's device, the invariant probe's
+``quorum(match)`` term a K1 launch on the card) and the capacity tick, at
+the point of ``step_all`` the reference runs them: after the dispatch, so
+at pipeline depth 1 they read the state the in-flight step produced and
+their one fetch each waits for that step.
 """
 
 from __future__ import annotations
@@ -341,21 +343,14 @@ class KernelEngine:
     def __init__(self, kp: KP.KernelParams, capacity: int,
                  send_message, events: EventHub | None = None,
                  election_rtt: int = 10, heartbeat_rtt: int = 1,
-                 fleet_stats_every: int = 0,
+                 fleet_stats_every: int = 10,
                  pipeline_depth: int = 0,
-                 health_top_k: int = 0,
-                 invariant_probe: bool = False,
+                 health_top_k: int = 8,
+                 health_thresholds=None,
+                 invariant_probe: bool = True,
+                 capacity_watermark_pct: float = 10.0,
+                 capacity_budget_bytes: int = 0,
                  device=None) -> None:
-        on = [name for name, v in (("fleet_stats_every", fleet_stats_every),
-                                   ("health_top_k", health_top_k),
-                                   ("invariant_probe", invariant_probe))
-              if v]
-        if on:
-            raise ValueError(
-                f"KernelEngine: {', '.join(on)} turned on, but the port "
-                "has no device fleet, health or invariant reduction yet "
-                "(ROADMAP.md Queue 1 item 7); set fleet_stats_every=0, "
-                "health_top_k=0 and invariant_probe=False")
         self.device = resolve_device(device)
         self.kp = kp
         self.capacity = capacity
@@ -456,41 +451,69 @@ class KernelEngine:
                                      "engine.kernel_step")
         maybe_start_from_env()
         self.events.metrics.set("engine.pipeline.depth", self.pipeline_depth)
-        # the decimated device reductions (core/fleet.py, core/health.py,
-        # core/invariants.py) are refused above until ROADMAP.md Queue 1
-        # item 7 ports them; the knobs stay readable (all off) and the
-        # snapshots they would fill stay None
-        self.fleet_stats_every = 0
+        # decimated device-side fleet telemetry (core/fleet.py): every N
+        # steps one reduction over the resident state fetches ONE small
+        # struct to host; 0 disables
+        self.fleet_stats_every = max(0, int(fleet_stats_every))
+        self._fleet_countdown = self.fleet_stats_every
         self.last_fleet: dict | None = None
-        from dragonboat_tpu_torch.core import health as _health
-
-        self.health_top_k = 0
-        self.last_health: dict | None = None
-        self._health_seq = 0
-        self.invariant_probe = False
-        self.last_invariants: dict | None = None
-        # standalone engines (no NodeHost) still expose the (empty)
-        # device views; a NodeHost registers its merged host+device view
-        # over the same names FIRST in its __init__, so these are no-ops
-        # there
+        # standalone engines (no NodeHost) still expose the device-only
+        # view; a NodeHost registers its merged host+device view over the
+        # same names FIRST in its __init__, so this is a no-op there
         from dragonboat_tpu_torch.core import fleet as _fleet
-        from dragonboat_tpu_torch.core import invariants as _invariants
 
         _fleet.register_exposition(self.events.metrics.registry,
                                    lambda: self.last_fleet)
+        # decimated device-side anomaly classification (core/health.py):
+        # rides the fleet countdown; the per-group digest carry stays
+        # device resident and only the O(K) report crosses to host.
+        # health_top_k=0 disables the pass entirely
+        from dragonboat_tpu_torch.core import health as _health
+
+        self.health_top_k = max(0, int(health_top_k))
+        self.health_thresholds = (
+            _health.HealthThresholds(*health_thresholds)
+            if health_thresholds is not None
+            else _health.DEFAULT_THRESHOLDS)
+        self._health_digest = None      # built lazily at the first tick
+        self.last_health: dict | None = None
+        self._health_seq = 0            # health ticks taken (flight stamp)
         _health.register_exposition(self.events.metrics.registry,
                                     lambda: self.last_health)
+        # decimated protocol-invariant probe (core/invariants.py): the
+        # runtime leg of the safety verifier, riding the same fleet
+        # countdown.  The prev-field digest carry stays device resident;
+        # one O(1) InvariantReport crosses to host.  A violation is
+        # ALWAYS a bug, so sightings are sticky (violations_seen) — a
+        # transient step-scope violation must not vanish from /healthz
+        # at the next clean window
+        from dragonboat_tpu_torch.core import invariants as _invariants
+
+        self.invariant_probe = bool(invariant_probe)
+        self._inv_digest = None         # built lazily at the first tick
+        self.last_invariants: dict | None = None
+        self._inv_seq = 0               # probe ticks taken (flight stamp)
+        self._inv_violations_seen = 0   # sticky cumulative violation total
+        # lanes injected/cleared since the last probe tick: their digest
+        # prev-columns describe a DIFFERENT occupant, so the probe must
+        # re-seed them (ticks=0) or a fresh shard's lower term would
+        # read as a bogus term_monotone violation
+        self._inv_dirty: set[int] = set()
         _invariants.register_exposition(self.events.metrics.registry,
                                         lambda: self.last_invariants)
-        # capacity rail (capacity.py): the dispatch backend wraps its step
-        # entries in call-count wrappers; the decimated capacity tick
-        # rides the reductions' cadence and waits for them (item 7),
-        # and so do its watermark and budget settings
+        # capacity rail (capacity.py): call-count wrappers around every
+        # entry this engine dispatches (eager entries record no compile),
+        # plus decimated device-memory accounting on the fleet cadence
+        self.capacity_watermark_pct = float(capacity_watermark_pct)
+        self.capacity_budget_bytes = max(0, int(capacity_budget_bytes))
         # the ONE dispatch backend (engine/dispatch.py): subclasses pick
         # a backend through the _make_dispatch seam instead of overriding
         # step-loop internals
         self._dispatch = self._make_dispatch()
+        self._cap_entries = self._capacity_entries()
         self.last_capacity: dict | None = None
+        self._capacity_seq = 0          # capacity ticks (flight stamp)
+        self._capacity_peak = 0         # high-water live tree bytes
         _capacity.register_exposition(self.events.metrics.registry,
                                       lambda: self.last_capacity)
 
@@ -578,6 +601,12 @@ class KernelEngine:
         lt_rows = np.zeros((n, kp.log_cap), np.int32)
         lcc_rows = np.zeros((n, kp.log_cap), bool)
         for j, (lane, (node, init, pids, kinds)) in enumerate(items):
+            # the probe re-seeds the lane's digest: its prev columns
+            # describe the lane's previous occupant.  Marked here, where
+            # the lane's state is written (admission does not hold
+            # engine.mu, so marking there could let a probe re-seed the
+            # lane before the write and compare across occupants after it)
+            self._inv_dirty.add(lane)
             pid_rows[j], kind_rows[j] = pids, kinds
             for e in init.entries:
                 lt_rows[j, e.index & (kp.log_cap - 1)] = e.term
@@ -672,6 +701,7 @@ class KernelEngine:
             )
 
     def _clear_lane(self, lane: int) -> None:
+        self._inv_dirty.add(lane)
         if self._pending_inject.pop(lane, None) is not None:
             # evicted before its injection ever flushed: the lane state
             # was never written, so there is nothing to clear on device
@@ -915,6 +945,16 @@ class KernelEngine:
                 else:
                     with annotate("kernel_engine.process_outputs"):
                         self._process_outputs(ctx)
+            if self.fleet_stats_every > 0:
+                self._fleet_countdown -= 1
+                if self._fleet_countdown <= 0:
+                    self._fleet_countdown = self.fleet_stats_every
+                    self._collect_fleet_stats()
+                    if self.health_top_k > 0:
+                        self._collect_health()
+                    if self.invariant_probe:
+                        self._collect_invariants()
+                    self._collect_capacity()
             return True
 
     def _is_registered(self, n: KernelNode) -> bool:
@@ -970,13 +1010,190 @@ class KernelEngine:
         serial backend re-stages from host queues and never does."""
         return self._dispatch.pending()
 
+    def _fleet_inbox_from(self) -> torch.Tensor:
+        """[G, K] sender ids feeding the inbox-occupancy histogram: the
+        backend picks the host-staged builder (uploaded to the engine's
+        device here) or its carried box."""
+        return _upload(self._dispatch.inbox_from(self._inbox_buf), self.device)
+
+    def _collect_fleet_stats(self) -> None:
+        """Decimated fleet telemetry: one reduction over the resident
+        state, one small struct fetched to host (core/fleet.py).  Runs
+        under engine.mu right after a step, so the state it reads is
+        exactly the state the step produced."""
+        from dragonboat_tpu_torch.core import fleet as _fleet
+
+        with _capacity.METER.sanctioned("fleet_down"):
+            stats = self._cap_entries["fleet_stats"](
+                self.state, self._fleet_inbox_from())
+            self.last_fleet = _fleet.stats_to_dict(stats)
+
+    def _make_health_digest(self):
+        """Fresh all-zero digest matching the engine's lane geometry on
+        the engine's device, placed by the dispatch backend."""
+        from dragonboat_tpu_torch.core import health as _health
+
+        return self._dispatch.shard(
+            _health.empty_digest(self.capacity, self.device))
+
+    def _collect_health(self) -> None:
+        """Decimated anomaly classification (core/health.py), on the
+        same cadence (and under the same engine.mu post-step window) as
+        ``_collect_fleet_stats``.  The digest carry never leaves the
+        device; one O(K) HealthReport is fetched.  Class-count edges
+        (0 -> nonzero and back) are recorded as flight-recorder
+        anomaly_raised/anomaly_cleared events stamped with the engine's
+        health-tick sequence — never the wall clock."""
+        from dragonboat_tpu_torch import flight
+        from dragonboat_tpu_torch.core import health as _health
+
+        if self._health_digest is None:
+            self._health_digest = self._make_health_digest()
+        with _capacity.METER.sanctioned("health_down"):
+            report, self._health_digest = self._cap_entries["fleet_health"](
+                self.state, self._fleet_inbox_from(), self._health_digest,
+                thresholds=self.health_thresholds, k=self.health_top_k)
+            cur = _health.report_to_dict(report)
+        prev = self.last_health
+        self._health_seq += 1
+        self.last_health = cur
+        prev_counts = prev["class_count"] if prev else {}
+        for cls, n in cur["class_count"].items():
+            was = prev_counts.get(cls, 0)
+            if n > 0 and was == 0:
+                flight.record(flight.ANOMALY_RAISED, cls=cls, count=n,
+                              tick=self._health_seq)
+            elif n == 0 and was > 0:
+                flight.record(flight.ANOMALY_CLEARED, cls=cls,
+                              tick=self._health_seq)
+
+    def _make_invariant_digest(self):
+        """Fresh all-zero invariant digest matching the engine's lane
+        geometry on the engine's device (same placement story as the
+        health digest)."""
+        from dragonboat_tpu_torch.core import invariants as _invariants
+
+        return self._dispatch.shard(
+            _invariants.empty_digest(self.capacity, self.device))
+
+    def _collect_invariants(self) -> None:
+        """Decimated protocol-invariant probe (core/invariants.py), on
+        the same cadence (and under the same engine.mu post-step window)
+        as ``_collect_fleet_stats``.  Lanes whose occupant changed since
+        the last probe tick are re-seeded (ticks=0, out of place) so
+        step-scoped invariants never compare across occupants.  A 0 ->
+        nonzero violation edge is recorded as an ``invariant_violation``
+        flight event stamped with the probe-tick sequence — never the
+        wall clock."""
+        from dragonboat_tpu_torch import flight
+        from dragonboat_tpu_torch.core import invariants as _invariants
+
+        if self._inv_digest is None:
+            self._inv_digest = self._make_invariant_digest()
+        with _capacity.METER.sanctioned("invariants_down"):
+            if self._inv_dirty:
+                lanes = _upload(np.array(sorted(self._inv_dirty), np.int64),
+                                self.device)
+                self._inv_dirty.clear()
+                d = self._inv_digest
+                self._inv_digest = d._replace(
+                    ticks=_put_rows(d.ticks, lanes, 0))
+            report, self._inv_digest = self._cap_entries[
+                "check_invariants"](self.state, self._inv_digest)
+            cur = _invariants.report_to_dict(report)
+        prev = self.last_invariants
+        self._inv_seq += 1
+        self._inv_violations_seen += cur["total"]
+        cur["violations_seen"] = self._inv_violations_seen
+        self.last_invariants = cur
+        was = prev["total"] if prev else 0
+        if cur["total"] > 0 and was == 0:
+            first = cur["first"] or {}
+            flight.record(flight.INVARIANT_VIOLATION,
+                          total=cur["total"],
+                          lane=first.get("lane", -1),
+                          invariants=first.get("invariants", []),
+                          tick=self._inv_seq)
+
+    def _capacity_entries(self) -> dict:
+        """Call-count wrappers for every entry this engine dispatches:
+        the backend's step entries plus the shared telemetry reductions.
+        Each engine wraps independently (own counters).  The port's
+        entries are eager: the wrappers count calls and record no
+        compile."""
+        from dragonboat_tpu_torch.core import fleet as _fleet
+        from dragonboat_tpu_torch.core import health as _health
+        from dragonboat_tpu_torch.core import invariants as _invariants
+
+        entries = dict(self._dispatch.entries)
+        entries.update({
+            "fleet_stats": _capacity.TRACKER.wrap(
+                "fleet_stats", _fleet.fleet_stats),
+            "fleet_health": _capacity.TRACKER.wrap(
+                "fleet_health", _health.fleet_health),
+            "check_invariants": _capacity.TRACKER.wrap(
+                "check_invariants", _invariants.check_invariants),
+        })
+        return entries
+
+    def _capacity_trees(self) -> tuple:
+        """Device-resident trees this engine keeps alive between steps
+        (the mesh backend adds its carried inbox)."""
+        return (self.state, self._health_digest, self._inv_digest) \
+            + self._dispatch.resident_trees()
+
+    def _capacity_model_classes(self) -> tuple:
+        """Contract classes resident on device for this engine's
+        geometry: the serial backend re-stages its inbox from host each
+        step, so only state + digests persist."""
+        return ("ShardState", "HealthDigest", "InvariantDigest") \
+            + self._dispatch.resident_classes()
+
+    def _collect_capacity(self) -> None:
+        """Decimated capacity accounting, riding the fleet cadence under
+        the same engine.mu post-step window: live bytes of the resident
+        trees (shape-derived — no device sync), allocator stats where
+        the backend reports them, the contracts capacity model at this
+        geometry, and the call counters.  The memory_pressure watermark
+        crossing is recorded as an edge-triggered flight event stamped
+        with the capacity tick — never the wall clock."""
+        from dragonboat_tpu_torch import flight
+
+        live = _capacity.measure_tree_bytes(*self._capacity_trees())
+        self._capacity_seq += 1
+        self._capacity_peak = max(self._capacity_peak, live)
+        prev = self.last_capacity
+        cur = _capacity.engine_snapshot(
+            self.kp, self.capacity, live, self._capacity_peak,
+            {name: w.stats() for name, w in self._cap_entries.items()},
+            budget_bytes=self.capacity_budget_bytes,
+            watermark_pct=self.capacity_watermark_pct,
+            ticks=self._capacity_seq,
+            classes=self._capacity_model_classes())
+        self.last_capacity = cur
+        was = bool(prev and prev["memory_pressure"])
+        if cur["memory_pressure"] and not was:
+            flight.record(flight.MEMORY_PRESSURE,
+                          bytes_in_use=cur["bytes_in_use"],
+                          budget_bytes=cur["budget_bytes"],
+                          headroom_pct=cur["headroom_pct"],
+                          tick=self._capacity_seq)
+
     def health_row(self, lane: int) -> dict:
-        """One lane's health drill-down row: the reference reads it with a
-        device reduction (core/health.py ``shard_row``) that the port does
-        not have yet."""
-        raise NotImplementedError(
-            "KernelEngine.health_row needs the device health reduction "
-            "(ROADMAP.md Queue 1 item 7)")
+        """One lane's drill-down row (NodeHost.shard_info): O(1) scalars
+        picked on the device and fetched in one crossing — the full
+        ShardState is never materialized on host."""
+        from dragonboat_tpu_torch.core import health as _health
+
+        with self.mu:
+            if self._health_digest is None:
+                self._health_digest = self._make_health_digest()
+            with _capacity.METER.sanctioned("health_row"):
+                row = _health.shard_row(
+                    self.state, self._fleet_inbox_from(),
+                    self._health_digest, lane,
+                    thresholds=self.health_thresholds)
+                return _health.row_to_dict(row)
 
     def _kernel_call(self, inbox: _InboxBuilder, inp: _InputBuilder):
         # depth > 0 routes through the backend's donating entry.  After
@@ -1617,8 +1834,13 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def _put_rows(arr: torch.Tensor, rows: torch.Tensor, vals) -> torch.Tensor:
     """``arr`` with ``arr[rows] = vals`` (out of place; ``vals``
-    broadcasts over the selected rows and takes ``arr``'s dtype)."""
-    v = torch.as_tensor(vals, device=arr.device).to(arr.dtype)
+    broadcasts over the selected rows and takes ``arr``'s dtype).  A
+    Python scalar is filled on ``arr``'s device, not copied from the
+    host."""
+    if isinstance(vals, torch.Tensor):
+        v = vals.to(device=arr.device, dtype=arr.dtype)
+    else:
+        v = torch.full((), vals, dtype=arr.dtype, device=arr.device)
     return arr.index_put((rows,), v.expand((rows.shape[0],) + arr.shape[1:]))
 
 

@@ -17,11 +17,11 @@ names the CPU (``NodeHost(..., device="cpu")``).
 Off this port's path, each raising at construction with the ROADMAP.md
 item that brings it: mesh-resident shards (``Config.mesh_resident`` with
 ``ExpertConfig.mesh``, Queue 1 item 11), gossip addressing
-(``address_by_node_host_id``, item 14), the metrics endpoint
-(``enable_metrics``, item 15) and the JAX compile cache
+(``address_by_node_host_id``, item 14) and the JAX compile cache
 (``ExpertConfig.compile_cache``: eager PyTorch compiles nothing, item
-13).  The engine's decimated device reductions are item 7 (see
-``engine/kernel_engine.py``).
+13).  The default ``ExpertConfig`` runs as is: the engine's decimated
+device reductions feed ``shard_info``'s device row and the opt-in
+``enable_metrics`` endpoint (``/metrics``, ``/healthz``, ``/debug/*``).
 """
 
 from __future__ import annotations
@@ -94,9 +94,6 @@ def _refuse_off_path(nhconfig: NodeHostConfig) -> None:
     if nhconfig.address_by_node_host_id:
         raise ValueError("address_by_node_host_id: gossip addressing is not "
                          "ported yet (ROADMAP.md Queue 1 item 14)")
-    if nhconfig.enable_metrics:
-        raise ValueError("enable_metrics: the metrics endpoint is not "
-                         "ported yet (ROADMAP.md Queue 1 item 15)")
     if ex.compile_cache:
         raise ValueError("ExpertConfig.compile_cache: the JAX compile cache "
                          "has no counterpart in eager PyTorch (ROADMAP.md "
@@ -335,9 +332,27 @@ class NodeHost:
         # process-wide for the same reason the tracer is — links span
         # hosts, so one registry must see both ends
         fabric.METER.configure(enabled=nhconfig.expert.fabric_telemetry)
-        # the JAX compile cache and the /metrics endpoint are refused
-        # above (_refuse_off_path); metrics_address stays None
+        # the JAX compile cache is refused above (_refuse_off_path).
+        # opt-in Prometheus /metrics endpoint (enable_metrics): serves
+        # this host's registry + the process-global one (module-scoped
+        # producers like the logdb latency histograms live there)
         self._metrics_server = None
+        if nhconfig.enable_metrics:
+            from dragonboat_tpu_torch.server.metrics_http import MetricsServer
+            from dragonboat_tpu_torch.telemetry import GLOBAL
+
+            self._metrics_server = MetricsServer(
+                [self.events.metrics.registry, GLOBAL],
+                address=nhconfig.metrics_address or "127.0.0.1:0",
+                health_source=self._health_snapshot,
+                info_source=self.info,
+                shard_info_source=self._shard_info_or_none,
+                capacity_source=self._capacity_snapshot,
+                invariants_source=self._invariants_snapshot,
+                fabric_source=fabric.METER.snapshot,
+                fabric_trace_source=fabric.METER.chrome_events)
+            _LOG.info("NodeHost %s metrics endpoint on %s",
+                      nhconfig.raft_address, self._metrics_server.address)
         self._auto_run = auto_run
         if auto_run:
             self._start_engine_threads()
@@ -768,9 +783,8 @@ class NodeHost:
                      cfg.shard_id, d.evidence)
 
     def _ensure_kernel_engine(self):
-        """The host's device engine, built on first use on ``self.device``.
-        Its constructor refuses the decimated device reductions
-        (ROADMAP.md Queue 1 item 7)."""
+        """The host's device engine, built on first use on ``self.device``
+        with the ExpertConfig's reduction, health and capacity settings."""
         from dragonboat_tpu_torch.engine.kernel_engine import KernelEngine
 
         with self.mu:
@@ -782,11 +796,25 @@ class NodeHost:
                     fleet_stats_every=ex.fleet_stats_every,
                     pipeline_depth=ex.kernel_pipeline_depth,
                     health_top_k=ex.health_top_k,
+                    health_thresholds=self._health_thresholds(),
                     invariant_probe=ex.invariant_probe,
+                    capacity_watermark_pct=ex.capacity_watermark_pct,
+                    capacity_budget_bytes=ex.capacity_device_budget_bytes,
                     device=self.device)
                 eng.on_evict = self._on_kernel_evict
                 self.kernel_engine = eng
             return self.kernel_engine
+
+    def _health_thresholds(self):
+        from dragonboat_tpu_torch.core import health as _health
+
+        ex = self.config.expert
+        return _health.HealthThresholds(
+            leaderless_ticks=ex.health_leaderless_ticks,
+            stall_ticks=ex.health_stall_ticks,
+            lag_ticks=ex.health_lag_ticks,
+            churn_trip=ex.health_churn_trip,
+            runaway_ticks=ex.health_runaway_ticks)
 
     def _inject_kernel_shard(self, node, members: dict[int, str]) -> None:
         """Move a freshly-bootstrapped shard onto the device kernel: the

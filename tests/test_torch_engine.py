@@ -8,7 +8,14 @@ for leaf, dtypes included (tolerance 0, ``convert.diff_leaves``), and so
 must every replica's applied index and KV contents.  The geometry is the
 reference engine tests' (``kernel_log_cap=256``, ``kernel_capacity=8``,
 ``kernel_apply_batch=16``, ``kernel_compaction_overhead=16``) with the
-three decimated device reductions off on both sides.
+three decimated device reductions on at the reference's defaults (every 10
+steps, top 8, the invariant probe): after every round the engines' last
+fleet, health, invariant and capacity snapshots and both digests must be
+equal too.  The capacity snapshots' compile counters are left out: the
+reference counts jit compiles, and the port's eager entries compile
+nothing (their call counts are compared).  At pipeline depth 1 the same
+script runs reference against port, the reductions reading the state of
+the step still in flight.
 
 Depth 1 against depth 0: the port at ``kernel_pipeline_depth=1`` and at
 depth 0, driven until every write of the same script is acknowledged,
@@ -45,12 +52,16 @@ from dragonboat_tpu_torch.config import Config, EngineConfig, ExpertConfig, Node
 from dragonboat_tpu_torch.nodehost import NodeHost
 
 from test_nodehost import KVStateMachine as RefKV
-from test_torch_nodehost import REDUCTIONS_OFF, KVStateMachine
+from test_torch_nodehost import KVStateMachine
 
 torch.set_num_threads(1)
 
 GEOMETRY = dict(kernel_log_cap=256, kernel_capacity=8, kernel_apply_batch=16,
-                kernel_compaction_overhead=16, **REDUCTIONS_OFF)
+                kernel_compaction_overhead=16)
+#: the compile telemetry of a capacity entry: the reference's jit entries
+#: compile, the port's eager entries never do
+COMPILE_COUNTERS = ("compiles", "retraces", "compile_us_total",
+                    "last_compile_us")
 REPLICAS = (1, 2, 3)
 
 
@@ -130,10 +141,40 @@ def _kv(nh):
     return n.sm.get_last_applied(), dict(n.sm.sm.kv)
 
 
-@pytest.mark.parametrize("seed", [3, 11])
-def test_engine_differential_bitwise(seed, fresh_counters):
-    tag = f"ted{seed}x{time.monotonic_ns()}"
-    ref, port = _hosts("ref", f"r{tag}"), _hosts("port", f"p{tag}")
+def _digest(d):
+    return None if d is None else {f: np.asarray(v) if not isinstance(
+        v, torch.Tensor) else v.numpy() for f, v in zip(d._fields, d)}
+
+
+def _capacity(cap):
+    """A capacity snapshot without the compile counters."""
+    if cap is None:
+        return None
+    return dict(cap, entries={
+        name: {k: v for k, v in e.items() if k not in COMPILE_COUNTERS}
+        for name, e in cap["entries"].items()})
+
+
+def _reductions_equal(ref_eng, eng, where):
+    for name in ("last_fleet", "last_health", "last_invariants",
+                 "_health_seq", "_inv_seq", "_capacity_seq"):
+        assert getattr(eng, name) == getattr(ref_eng, name), (where, name)
+    assert _capacity(eng.last_capacity) == _capacity(ref_eng.last_capacity), \
+        where
+    for name in ("_health_digest", "_inv_digest"):
+        a, b = _digest(getattr(ref_eng, name)), _digest(getattr(eng, name))
+        assert (a is None) == (b is None), (where, name)
+        if a is not None:
+            assert not convert.diff_leaves(a, b), (where, name)
+
+
+def _differential(seed, depth):
+    """The seeded script on reference and port hosts; every leaf equal
+    after every round.  Returns the reduction ticks host 1 took."""
+    tag = f"ted{seed}d{depth}x{time.monotonic_ns()}"
+    ref = _hosts("ref", f"r{tag}", depth=depth)
+    port = _hosts("port", f"p{tag}", depth=depth)
+    ticks = 2 + depth
     try:
         assert all(nh.kernel_engine.device.type == "cpu"
                    for nh in port.values())
@@ -142,18 +183,35 @@ def test_engine_differential_bitwise(seed, fresh_counters):
             lead = _leader(ref)
             assert _leader(port) == lead, (i, lead, _leader(port))
             lead_seen |= bool(lead)
-            _round(ref, action, lead)
-            _round(port, action, lead)
+            _round(ref, action, lead, ticks=ticks)
+            _round(port, action, lead, ticks=ticks)
             for r in REPLICAS:
                 got = convert.to_numpy(port[r].kernel_engine.state)
                 bad = convert.diff_leaves(_ref_state(ref[r]), got)
                 assert not bad, (seed, i, r, bad)
                 assert _kv(port[r]) == _kv(ref[r]), (seed, i, r)
+                _reductions_equal(ref[r].kernel_engine,
+                                  port[r].kernel_engine, (seed, i, r))
         assert lead_seen
         assert any(_kv(nh)[1] for nh in port.values()), "no write applied"
+        eng = port[1].kernel_engine
+        assert eng.last_invariants["violations_seen"] == 0
+        return eng._inv_seq
     finally:
         for nh in (*ref.values(), *port.values()):
             nh.close()
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_engine_differential_bitwise(seed, fresh_counters):
+    assert _differential(seed, 0) >= 2
+
+
+@pytest.mark.parametrize("seed", [3, 11])
+def test_engine_differential_bitwise_depth1(seed, fresh_counters):
+    """Depth 1, reference against port: the decimated reductions read the
+    state of the step still in flight on both sides."""
+    assert _differential(seed, 1) >= 2
 
 
 def _drive_writes(hosts, values, budget=200):

@@ -6,9 +6,9 @@ The cases mirror ``tests/test_kernel_engine.py`` and
 read from a follower host (ReadIndex forwarded to the leader's row),
 snapshot and compaction, leader transfer, eviction to the host engine with
 a pipelined step in flight, restart from a durable (sharded tan) directory,
-and two config changes in a row.  Every host runs with the three decimated
-device reductions off, which the port's engine requires, on
-``device="cpu"`` (the plain arms of the step's kernels).
+and two config changes in a row.  Every host runs the three decimated
+device reductions at the reference's defaults, on ``device="cpu"`` (the
+plain arms of the step's kernels).
 """
 
 import struct
@@ -29,10 +29,6 @@ from dragonboat_tpu_torch.statemachine import IStateMachine, Result
 
 # several engine threads per test: keep each on one intra-op thread
 torch.set_num_threads(1)
-
-#: the three device reductions the port does not have yet, turned off
-REDUCTIONS_OFF = dict(fleet_stats_every=0, health_top_k=0,
-                      invariant_probe=False)
 
 #: tick interval of the three-host clusters.  Device rows tick once per
 #: engine step, host-resident nodes (a shard after eviction) on the wall
@@ -71,26 +67,25 @@ class KVStateMachine(IStateMachine):
 
 
 def engine_expert(**kw):
-    """The reference engine tests' geometry, reductions off, one step
-    worker (every shard here is device-resident and stepped by the engine
-    on worker 0; the idle-worker test below runs the reference's
-    EngineConfig)."""
+    """The reference engine tests' geometry, one step worker (every shard
+    here is device-resident and stepped by the engine on worker 0; the
+    idle-worker test below runs the reference's EngineConfig)."""
     for k, v in dict(kernel_log_cap=256, kernel_capacity=8,
                      kernel_apply_batch=16, kernel_compaction_overhead=16,
-                     engine=EngineConfig(exec_shards=1, apply_shards=1),
-                     **REDUCTIONS_OFF).items():
+                     engine=EngineConfig(exec_shards=1, apply_shards=1)
+                     ).items():
         kw.setdefault(k, v)
     return ExpertConfig(**kw)
 
 
 def make_cluster(prefix, n=3, snapshot_entries=0, expert=None,
-                 auto_run=True, shard_id=1):
+                 auto_run=True, shard_id=1, metrics=False):
     addrs = {i: f"{prefix}-{i}" for i in range(1, n + 1)}
     hosts = {}
     for rid, addr in addrs.items():
         nh = NodeHost(NodeHostConfig(
             raft_address=addr, rtt_millisecond=RTT_MS,
-            expert=expert or engine_expert()),
+            enable_metrics=metrics, expert=expert or engine_expert()),
             auto_run=auto_run, device="cpu")
         nh.start_replica(addrs, False, KVStateMachine, Config(
             shard_id=shard_id, replica_id=rid, election_rtt=10,

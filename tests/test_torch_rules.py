@@ -103,11 +103,27 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_nodehost_path_imports_no_jax_and_no_reference_package():
+    """Three hosts (the engine tests' geometry, metrics on) elect, write and
+    read back; then one host under the default ExpertConfig with
+    enable_metrics serves a device shard and /metrics shows its leader."""
     code = textwrap.dedent("""
-        import sys, time
+        import sys, time, urllib.request
         sys.path.insert(0, "tests")
-        from test_torch_nodehost import make_cluster, close_all
-        hosts = make_cluster(f"rules{time.monotonic_ns()}", auto_run=False)
+        from test_torch_nodehost import make_cluster, close_all, KVStateMachine
+        from dragonboat_tpu_torch.config import Config, NodeHostConfig
+        from dragonboat_tpu_torch.nodehost import NodeHost
+
+        def scrape(nh):
+            url = f"http://{nh.metrics_address}/metrics"
+            return urllib.request.urlopen(url, timeout=10).read().decode()
+
+        def leaders(text):
+            line = 'fleet_role_count{role="leader"} '
+            return sum(int(float(x[len(line):])) for x in text.splitlines()
+                       if x.startswith(line))
+
+        hosts = make_cluster(f"rules{time.monotonic_ns()}", auto_run=False,
+                             metrics=True)
         try:
             lead = 0
             for _ in range(40):
@@ -129,8 +145,28 @@ def test_nodehost_path_imports_no_jax_and_no_reference_package():
                     h.run_once()
             assert rs.result.completed(), rs.result
             assert all(h.stale_read(1, "a") == "1" for h in hosts.values())
+            assert sum(leaders(scrape(h)) for h in hosts.values()) == 1
         finally:
             close_all(hosts)
+        addr = f"rules-dflt{time.monotonic_ns()}"
+        nh = NodeHost(NodeHostConfig(raft_address=addr, enable_metrics=True),
+                      auto_run=False, device="cpu")
+        try:
+            nh.start_replica({1: addr}, False, KVStateMachine, Config(
+                shard_id=1, replica_id=1, election_rtt=10, heartbeat_rtt=1,
+                device_resident=True))
+            for _ in range(40):
+                nh.tick_all(); nh.tick_all(); nh.run_once()
+                if nh.get_leader_id(1) == (1, True):
+                    break
+            rs = nh.propose(nh.get_noop_session(1), b"b=2", timeout_s=5)
+            for _ in range(12):
+                nh.tick_all(); nh.tick_all(); nh.run_once()
+            assert rs.result.completed() and nh.stale_read(1, "b") == "2"
+            assert nh.kernel_engine._inv_seq > 0
+            assert leaders(scrape(nh)) == 1
+        finally:
+            nh.close()
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "dragonboat_tpu" or m.startswith("dragonboat_tpu."))
@@ -154,45 +190,12 @@ def test_nodehost_without_device_raises_when_no_gpu():
         NodeHost(NodeHostConfig(raft_address="rules-nodev-1"), auto_run=False)
 
 
-def test_engine_refuses_the_device_reductions():
-    from dragonboat_tpu_torch.engine.kernel_engine import KernelEngine
-
-    kp = bl.bench_params(3, device="cpu")
-    for kw in ({"fleet_stats_every": 10}, {"health_top_k": 8},
-               {"invariant_probe": True}):
-        with pytest.raises(ValueError, match="Queue 1 item 7"):
-            KernelEngine(kp, 4, lambda m: None, device="cpu", **kw)
-    eng = KernelEngine(kp, 4, lambda m: None, device="cpu")
-    assert (eng.fleet_stats_every, eng.health_top_k,
-            eng.invariant_probe) == (0, 0, False)
-
-
 def test_nodehost_refuses_off_path_settings():
-    from dragonboat_tpu_torch.config import (
-        Config,
-        ExpertConfig,
-        MeshSpec,
-        NodeHostConfig,
-    )
+    from dragonboat_tpu_torch.config import ExpertConfig, MeshSpec, NodeHostConfig
     from dragonboat_tpu_torch.nodehost import NodeHost
 
-    from test_torch_nodehost import KVStateMachine
-
-    # the reference's default ExpertConfig turns the reductions on: the
-    # first device-resident shard is refused before it is registered
-    nh = NodeHost(NodeHostConfig(raft_address="rules-off-1"),
-                  auto_run=False, device="cpu")
-    try:
-        with pytest.raises(ValueError, match="Queue 1 item 7"):
-            nh.start_replica({1: "rules-off-1"}, False, KVStateMachine,
-                             Config(shard_id=1, replica_id=1,
-                                    device_resident=True))
-        assert 1 not in nh.nodes and nh.kernel_engine is None
-    finally:
-        nh.close()
     cases = (
         (dict(expert=ExpertConfig(mesh=MeshSpec())), "item 11"),
-        (dict(enable_metrics=True), "item 15"),
         (dict(expert=ExpertConfig(compile_cache=True)), "item 13"),
     )
     for i, (kw, item) in enumerate(cases):
