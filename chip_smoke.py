@@ -23,7 +23,30 @@ Phases, each printing one line (any failure exits non-zero):
    elect_all, a timed window of run_steps_sm steps, a settle, and the
    read-back of every replica's applied write; launch counts of every
    kernel are taken over this phase alone;
-6. nodehost: the port's NodeHost as a user runs it — three hosts in this
+6. loops: the rest of ``bench_loop`` at ``bench.py``'s default shapes on
+   a device, one line per loop, each with its K1/K2/K3 launches (counts
+   reset before the loop's driven steps) and the host syncs of an untimed
+   pass under CUDA's sync debug mode "warn" (per step, by call site; a
+   sync in ``bench_loop.py`` fails the phase, and so does a control
+   ``.item()`` that does not count as one sync): on one 8192 x 3 cluster
+   the commit-latency loop (10 settle + 100 timed steps, width 32, no
+   reads; p50/p99/p99.9 in steps and ms, histogram total = leader
+   releases) ``[loops_latency]``, the ReadIndex mix (100 steps; ctx/s,
+   writes/s, ops/s) ``[loops_mixed]`` and the membership wave (3 rounds of
+   cc_step + 3 steps, the gate released by the host; every accepted CC
+   committed, the compaction floor advanced) ``[loops_wave]``; the served
+   9:1 mix on a fresh 8192 x 3 device-SM cluster (warm 3 + 1, 100 timed;
+   0 rejects, K3 once a step) ``[loops_served]``; the election storm at
+   10,000 x 3 with pre-vote (10 ticks, 30 steps at drop 0.25, clean chunks
+   of 10 until exactly one leader per group, at most 400)
+   ``[loops_storm]``; one shard for 200 steps ``[loops_single]``.  Each
+   line also holds K1 and K2, bitwise, against their plain arms on the
+   inputs of every 37th call the loop made (its own shapes: 24,576 rows,
+   30,000 for the storm, 3 for the single shard).  Then every loop card
+   against CPU at 64 x 3 and kernels against plain arms at 1024 x 3,
+   every leaf equal ``[loops_parity]`` (the pipelined loops are the
+   serial ones at 2n, so they are not driven apart);
+7. nodehost: the port's NodeHost as a user runs it — three hosts in this
    process over the chan transport, ``auto_run=True``, the reference's
    default ExpertConfig and EngineConfig (kernel_log_cap 1024,
    kernel_num_peers 5, kernel_capacity 1024; the fleet, health and
@@ -53,7 +76,8 @@ Phases, each printing one line (any failure exits non-zero):
    the card and on the CPU, every engine state leaf, every reduction
    snapshot and every replica's applied index and contents equal after
    every round;
-7. the ``kernels`` JSON line, then the final ``{"ok": true, ...}`` line.
+8. the ``kernels`` JSON line (launches: phase 5's), then the final
+   ``{"ok": true, ...}`` line.
 
 Every number the run takes is printed on these lines.  Needs no network
 and no JAX, and takes no arguments.  ``--compare-workers [ROUNDS]`` runs
@@ -80,11 +104,33 @@ SEED = 20261017
 SLICE_GROUPS, REPLICAS, TABLE_CAP = 8192, 3, 1024
 PARITY_GROUPS, CPU_GROUPS, PARITY_STEPS = 1024, 64, 40
 WINDOW_STEPS, SETTLE_STEPS = 200, 8
+# phase 6, the bench loops at bench.py's defaults on a device: 8192
+# groups, write width = proposal_cap (32), A2 and B 100 steps (max(40,
+# 200 // 2)), chunk 3 (max(2, min(25, 25 * 1024 // 8192))), the wave's
+# period max(4, chunk) over 3 rounds, the storm at 10,000 groups (10
+# ticks, 30 steps at drop 0.25, seed 42, clean chunks of 10 up to 400),
+# one shard for 200 steps in chunks of 25
+LOOP_GROUPS, LOOP_WW, LOOP_CHUNK = 8192, 32, 3
+LAT_SETTLE, LAT_STEPS, MIXED_STEPS = 10, 100, 100
+CC_ROUNDS, CC_PERIOD = 3, 4
+STORM_GROUPS, STORM_TICKS, STORM_STEPS, STORM_DROP, STORM_SEED = 10000, 10, 30, 0.25, 42
+RECOVERY_CHUNK, RECOVERY_MAX = 10, 400
+SINGLE_STEPS, SINGLE_CHUNK = 200, 25
+# the loops' parity: every loop card against CPU at CPU_GROUPS x 3 and
+# kernels against plain arms at PARITY_GROUPS x 3, LOOP_PARITY_STEPS each;
+# K1 and K2 held against their plain arms on the inputs of every
+# LOOP_TAP_EVERY-th call in each loop's own run (up to TAP_KEEP); a step
+# calls K1 16 times and K2 12 times, so a prime stride lands on different
+# call sites and spreads the taps over the first ~37 steps (past the
+# storm's 10 ticks into its drops)
+LOOP_PARITY_STEPS, LOOP_TAP_EVERY = 16, 37
+# untimed steps of each loop under CUDA's sync debug mode
+SYNC_PASS_STEPS = 2
 NH_SHARDS, NH_WRITES, NH_DEPTH1_SHARDS, NH_SAMPLE_READS = 1024, 4, 64, 32
 NH_PARITY_ROUNDS = 24
 # K1 on the NodeHost path: kernel_capacity rows x kernel_num_peers
 ENGINE_G, ENGINE_P = 1024, 5
-K1_TAP_EVERY, K1_TAP_KEEP = 25, 16
+K1_TAP_EVERY, TAP_KEEP = 25, 16
 # the ExpertConfig switches that turn the three decimated reductions off
 REDUCTIONS_OFF = dict(fleet_stats_every=0, health_top_k=0,
                       invariant_probe=False)
@@ -541,12 +587,30 @@ def _drive(groups: int, dev, steps: int):
     return state, kv_state, int(rej)
 
 
-def _diff(torch, a_state, a_kv, b_state, b_kv) -> list[str]:
-    bad = [f for f, x, y in zip(a_state._fields, a_state, b_state)
-           if (x is None) != (y is None)
-           or (x is not None and not torch.equal(x.cpu(), y.cpu()))]
-    bad += [f"kv.{k}" for k in a_kv if not torch.equal(a_kv[k].cpu(), b_kv[k].cpu())]
-    return bad
+def _leaves(tag: str, x) -> dict:
+    """Every tensor leaf of a nest of NamedTuples, dicts, tuples and
+    tensors, by path, copied to the host (None leaves are left out)."""
+    import torch
+
+    out = {}
+    if isinstance(x, torch.Tensor):
+        out[tag] = x.detach().cpu()
+    elif hasattr(x, "_fields"):
+        for k, v in zip(x._fields, x):
+            out.update(_leaves(f"{tag}.{k}", v))
+    elif isinstance(x, dict):
+        for k, v in x.items():
+            out.update(_leaves(f"{tag}.{k}", v))
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            out.update(_leaves(f"{tag}[{i}]", v))
+    return out
+
+
+def _leaf_diff(torch, a: dict, b: dict) -> list[str]:
+    bad = sorted(set(a) ^ set(b))
+    return bad + [k for k in a if k in b and (a[k].dtype != b[k].dtype
+                                              or not torch.equal(a[k], b[k]))]
 
 
 def phase_parity(torch, dev) -> None:
@@ -556,12 +620,12 @@ def phase_parity(torch, dev) -> None:
     sk, kvk, rk = _drive(PARITY_GROUPS, dev, PARITY_STEPS)
     with kernels.plain_arms():
         sp, kvp, rp = _drive(PARITY_GROUPS, dev, PARITY_STEPS)
-    bad = _diff(torch, sk, kvk, sp, kvp)
+    bad = _leaf_diff(torch, _leaves("", (sk, kvk)), _leaves("", (sp, kvp)))
     check(not bad and rk == rp == 0,
           f"kernel path != plain path at {PARITY_GROUPS}x3: {bad} rejects {rk}/{rp}")
     sg, kvg, rg = _drive(CPU_GROUPS, dev, PARITY_STEPS)
     sc, kvc, rc = _drive(CPU_GROUPS, torch.device("cpu"), PARITY_STEPS)
-    bad = _diff(torch, sg, kvg, sc, kvc)
+    bad = _leaf_diff(torch, _leaves("", (sg, kvg)), _leaves("", (sc, kvc)))
     check(not bad and rg == rc == 0,
           f"card != CPU at {CPU_GROUPS}x3: {bad} rejects {rg}/{rc}")
     applied = int(kvk["count"].sum())
@@ -653,6 +717,443 @@ def phase_slice(torch, dev) -> dict:
           f"kv_apply launched {launches['kv_apply']} times in "
           f"{WINDOW_STEPS + SETTLE_STEPS} device-SM steps")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the rest of bench_loop at bench.py's shapes
+# ---------------------------------------------------------------------------
+
+
+def _sync_pass(torch, fn, steps: int) -> dict:
+    """Run ``fn()`` (``steps`` steps of one loop, result discarded) under
+    CUDA's sync debug mode "warn" and count the host syncs it makes.  Each
+    sync's site is the innermost frame of this checkout on the stack when
+    the warning is raised, beside the innermost frame of all."""
+    import collections
+    import os
+    import traceback
+    import warnings
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # the mode's own prototype notice is not a sync
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if os.path.basename(f.filename) != "warnings.py"]
+        ours = [f for f in stack if f.filename.startswith(root + os.sep)]
+        where = (f"{os.path.relpath(ours[-1].filename, root)}:{ours[-1].lineno}"
+                 if ours else "?")
+        sites[f"{where} ({os.path.basename(stack[-1].filename)}:{stack[-1].lineno})"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    n = sum(sites.values())
+    check(not any(site.startswith("dragonboat_tpu_torch/bench_loop.py") for site in sites),
+          f"the loop code syncs with the host: {dict(sites)}")
+    return {"syncs_per_step": n / steps,
+            "first_sync": json.dumps(next(iter(sites), None)),
+            "sync_sites": json.dumps(dict(sites), separators=(",", ":"))}
+
+
+def _check_path_launches(name: str, launches: dict, k3: int | None = None) -> None:
+    for k in ("quorum_match", "gather_lanes"):
+        check(launches[k] > 0, f"{name}: kernel {k} was not launched")
+    if k3 is not None:
+        check(launches["kv_apply"] == k3,
+              f"{name}: kv_apply launched {launches['kv_apply']} times in {k3} steps")
+    else:
+        check(launches["kv_apply"] == 0, f"{name}: kv_apply launched off the device-SM path")
+
+
+def _loop_taps():
+    """Tap K1 and K2 where the step and the router call them, every
+    LOOP_TAP_EVERY-th call; returns the records and the untap function."""
+    from dragonboat_tpu_torch.core import kernel as K
+    from dragonboat_tpu_torch.core import router
+
+    k1, untap1 = _tap(K, "quorum_match", LOOP_TAP_EVERY)
+    k2, untap2 = _tap(router, "gather_lanes", LOOP_TAP_EVERY)
+
+    def untap():
+        untap1()
+        untap2()
+
+    return (k1, k2), untap
+
+
+def _loop_held(torch, name: str, taps) -> dict:
+    """K1 and K2 against their plain arms, bitwise, on the inputs the loop
+    gave them (run after the loop's launch counts were read)."""
+    k1, k2 = taps
+    out = {**_tapped(torch, k1["inputs"], "k1_held"),
+           **_tapped(torch, k2["inputs"], "k2_held", "gather_lanes")}
+    for k in ("k1_held", "k2_held"):
+        check(out[f"{k}_mismatches"] == 0,
+              f"{name}: {k[:2].upper()} differs from its plain arm on the loop's inputs")
+    return out
+
+
+def _pctile(hist, q: float):
+    """bench.py's percentile (in steps) from the latency histogram."""
+    h = np.asarray(hist, np.int64)
+    c = h.cumsum()
+    if c[-1] == 0:
+        return None
+    return int(np.searchsorted(c, q * c[-1], side="left"))
+
+
+def _leader_sum(torch, t, lead) -> int:
+    return int(torch.where(lead, t.to(torch.int64), 0).sum())
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _loops_cluster(torch, dev):
+    """Phases A2, B and D on one elected 8192 x 3 cluster, in bench.py's
+    order: latency (no reads), the ReadIndex mix, the membership wave."""
+    from dragonboat_tpu_torch import bench_loop as bl
+    from dragonboat_tpu_torch import kernels
+    from dragonboat_tpu_torch.core import params as KP
+
+    N, R, WW = LOOP_GROUPS, REPLICAS, LOOP_WW
+    G = N * R
+    kp = bl.bench_params(R, dev)
+    (state, box), elect_s = _timed(torch, lambda: bl.elect_all(
+        kp, R, bl.make_cluster(kp, N, R, device=dev)))
+    lead = state.role == KP.LEADER
+    check(bool(lead.reshape(N, R).any(dim=1).all()), "a group has no leader after elect_all")
+    stamp, hist, reads = bl.lat_init(kp, G, device=dev)
+
+    # A2: commit latency
+    syncs = _sync_pass(torch, lambda: bl.run_steps_lat(
+        kp, R, SYNC_PASS_STEPS, WW, False, True, True, 0, state, box,
+        stamp.clone(), hist.clone(), reads.clone()), SYNC_PASS_STEPS)
+    kernels.reset_launches()
+    taps, untap = _loop_taps()
+    try:
+        state, box, stamp, hist, reads = bl.run_steps_lat(
+            kp, R, LAT_SETTLE, WW, False, True, True, 0, state, box, stamp, hist, reads)
+        now = LAT_SETTLE
+        h0 = hist.to(torch.int64)
+        a0 = _leader_sum(torch, state.processed, lead)
+        (state, box, stamp, hist, reads), dt = _timed(torch, lambda: bl.run_steps_lat(
+            kp, R, LAT_STEPS, WW, False, True, True, now, state, box, stamp, hist, reads))
+        now += LAT_STEPS
+        launches = dict(kernels.launches)
+    finally:
+        untap()
+    held = _loop_held(torch, "loops_latency", taps)
+    dh = (hist.to(torch.int64) - h0).cpu().numpy()
+    released = _leader_sum(torch, state.processed, lead) - a0
+    step_ms = dt / LAT_STEPS * 1e3
+    pct = {name: _pctile(dh, q) for name, q in (("p50", 0.5), ("p99", 0.99), ("p99.9", 0.999))}
+    say("loops_latency", groups=N, replicas=R, write_width=WW, settle_steps=LAT_SETTLE,
+        steps=LAT_STEPS, elect_s=elect_s, window_s=dt, step_ms=step_ms,
+        released=released, hist_total=int(dh.sum()),
+        **{f"{k}_steps": v for k, v in pct.items()},
+        **{f"{k}_ms": (None if v is None else v * step_ms) for k, v in pct.items()},
+        launches=json.dumps(launches, separators=(",", ":")), **held, **syncs)
+    check(int(dh.sum()) == released > 0,
+          f"latency histogram holds {int(dh.sum())} releases, leaders released {released}")
+    _check_path_launches("loops_latency", launches)
+
+    # B: the 9:1 ReadIndex mix, permits
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    syncs = _sync_pass(torch, lambda: bl.run_steps_mixed(
+        kp, R, SYNC_PASS_STEPS, WW, now, state, box, zero), SYNC_PASS_STEPS)
+    kernels.reset_launches()
+    c0 = _leader_sum(torch, state.committed, lead)
+    taps, untap = _loop_taps()
+    try:
+        (state, box, ctx), dt = _timed(torch, lambda: bl.run_steps_mixed(
+            kp, R, MIXED_STEPS, WW, now, state, box, zero))
+        launches = dict(kernels.launches)
+    finally:
+        untap()
+    now += MIXED_STEPS
+    held = _loop_held(torch, "loops_mixed", taps)
+    writes = _leader_sum(torch, state.committed, lead) - c0
+    ctx = int(ctx)
+    rb = 9 * WW
+    say("loops_mixed", groups=N, write_width=WW, steps=MIXED_STEPS, window_s=dt,
+        step_ms=dt / MIXED_STEPS * 1e3, read_ctx=ctx, read_ctx_per_s=ctx / dt,
+        read_batch_per_ctx=rb, writes=writes, writes_per_s=writes / dt,
+        ops_per_s=(writes + min(ctx * rb, 9 * writes)) / dt,
+        launches=json.dumps(launches, separators=(",", ":")), **held, **syncs)
+    check(ctx > 0 and writes > 0, f"mixed loop: {ctx} ctxs, {writes} writes")
+    _check_path_launches("loops_mixed", launches)
+
+    # D: the membership wave with compaction under load; the host plays
+    # the engine and releases the one-in-flight gate before each wave
+    syncs = _sync_pass(torch, lambda: bl.cc_step(kp, R, state, box), 1)
+
+    def waves():
+        nonlocal state, box
+        out = []
+        for _ in range(CC_ROUNDS):
+            state = state._replace(pending_cc=torch.zeros_like(state.pending_cc))
+            state, box, acc, idx = bl.cc_step(kp, R, state, box)
+            out.append((acc, idx))
+            state, box = bl.run_steps(kp, R, CC_PERIOD - 1, True, True, state, box)
+        return out
+
+    kernels.reset_launches()
+    taps, untap = _loop_taps()
+    try:
+        state, box, _acc, _idx = bl.cc_step(kp, R, state, box)
+        state, box = bl.run_steps(kp, R, CC_PERIOD - 1, True, True, state, box)
+        snap0 = _leader_sum(torch, state.snap_index, lead)
+        c0 = _leader_sum(torch, state.committed, lead)
+        wave_out, dt = _timed(torch, waves)
+        launches = dict(kernels.launches)
+    finally:
+        untap()
+    held = _loop_held(torch, "loops_wave", taps)
+    committed = state.committed
+    cc_acc = sum(int(a.sum()) for a, _ in wave_out)
+    cc_done = sum(int((a & (committed >= i)).sum()) for a, i in wave_out)
+    writes = _leader_sum(torch, state.committed, lead) - c0
+    advance = _leader_sum(torch, state.snap_index, lead) - snap0
+    steps = CC_ROUNDS * CC_PERIOD
+    say("loops_wave", groups=N, rounds=CC_ROUNDS, period=CC_PERIOD, cc_accepted=cc_acc,
+        cc_committed=cc_done, window_s=dt, step_ms=dt / steps * 1e3, writes=writes,
+        writes_per_s=writes / dt, compaction_floor_advance=advance,
+        launches=json.dumps(launches, separators=(",", ":")), **held, **syncs)
+    check(cc_acc > 0, "no config change was accepted")
+    check(cc_done == cc_acc, f"{cc_acc - cc_done} of {cc_acc} accepted CCs not committed")
+    check(advance > 0, "the compaction floor did not advance under the wave")
+    _check_path_launches("loops_wave", launches)
+
+
+def _loops_served(torch, dev):
+    """B2: the 9:1 mix with every read served from the device table, on a
+    fresh device-SM cluster: warm chunk and remainder, then the window."""
+    from dragonboat_tpu_torch import bench_loop as bl
+    from dragonboat_tpu_torch import kernels
+    from dragonboat_tpu_torch.core import params as KP
+
+    N, R, WW, T = LOOP_GROUPS, REPLICAS, LOOP_WW, TABLE_CAP
+    kp = bl.sm_params(R, dev)
+    (state, box), elect_s = _timed(torch, lambda: bl.elect_all(
+        kp, R, bl.make_cluster(kp, N, R, device=dev)))
+    lead = state.role == KP.LEADER
+    kv, kv_state = bl.make_device_sm(N, R, T, device=dev)
+    z = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
+    carry = [z(), z(), z()]
+    syncs = _sync_pass(torch, lambda: bl.run_steps_mixed_sm(
+        kp, R, kv, SYNC_PASS_STEPS, WW, 0, state, box,
+        {k: v.clone() for k, v in kv_state.items()}, z(), z(), z()), SYNC_PASS_STEPS)
+    kernels.reset_launches()
+    taps, untap = _loop_taps()
+    try:
+        now = 0
+        for n in (min(LOOP_CHUNK, MIXED_STEPS), MIXED_STEPS % LOOP_CHUNK):
+            state, box, kv_state, *carry = bl.run_steps_mixed_sm(
+                kp, R, kv, n, WW, now, state, box, kv_state, *carry)
+            now += n
+        c0, r0 = _leader_sum(torch, state.committed, lead), int(carry[0])
+        (state, box, kv_state, *carry), dt = _timed(torch, lambda: bl.run_steps_mixed_sm(
+            kp, R, kv, MIXED_STEPS, WW, now, state, box, kv_state, *carry))
+        launches = dict(kernels.launches)
+    finally:
+        untap()
+    held = _loop_held(torch, "loops_served", taps)
+    writes = _leader_sum(torch, state.committed, lead) - c0
+    served = (int(carry[0]) - r0) * 9 * WW
+    rejects, checksum = int(carry[2]), int(carry[1])
+    steps = now + MIXED_STEPS
+    say("loops_served", groups=N, table_cap=T, table="direct-mapped", write_width=WW,
+        warm_steps=now, steps=MIXED_STEPS, elect_s=elect_s, window_s=dt,
+        step_ms=dt / MIXED_STEPS * 1e3, writes=writes, writes_per_s=writes / dt,
+        reads_served=served, reads_served_per_s=served / dt,
+        ops_per_s=(writes + min(served, 9 * writes)) / dt, read_checksum=checksum,
+        rejected_writes=rejects, launches=json.dumps(launches, separators=(",", ":")),
+        **held, **syncs)
+    check(rejects == 0, f"{rejects} committed writes rejected in the served mix")
+    check(served > 0 and checksum != 0, f"served mix: {served} reads, checksum {checksum}")
+    _check_path_launches("loops_served", launches, k3=steps)
+
+
+def _loops_storm(torch, dev):
+    """C: 10,000 groups with pre-vote, 10 ticks, the storm, then clean
+    chunks until exactly one leader per group."""
+    from dragonboat_tpu_torch import bench_loop as bl
+    from dragonboat_tpu_torch import kernels
+    from dragonboat_tpu_torch.core import params as KP
+    from dragonboat_tpu_torch.core.kstate import empty_inbox
+
+    N, R = STORM_GROUPS, REPLICAS
+    kp = bl.bench_params(R, dev)
+    state = bl.make_cluster(kp, N, R, device=dev)
+    state = state._replace(pre_vote=torch.ones_like(state.pre_vote))
+    box = empty_inbox(kp, N * R, dev)
+    syncs = _sync_pass(torch, lambda: bl.run_steps_storm(
+        kp, R, SYNC_PASS_STEPS, STORM_DROP, STORM_SEED, state, box), SYNC_PASS_STEPS)
+    kernels.reset_launches()
+    taps, untap = _loop_taps()
+    try:
+        state, box = bl.run_steps(kp, R, STORM_TICKS, True, False, state, box)
+        (state, box), storm_s = _timed(torch, lambda: bl.run_steps_storm(
+            kp, R, STORM_STEPS, STORM_DROP, STORM_SEED, state, box))
+        leaders = (state.role.reshape(N, R) == KP.LEADER).sum(dim=1)
+        coverage = float((leaders > 0).float().mean())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done, recovered = 0, None
+        while done < RECOVERY_MAX:
+            state, box = bl.run_steps(kp, R, RECOVERY_CHUNK, True, False, state, box)
+            done += RECOVERY_CHUNK
+            leaders = (state.role.reshape(N, R) == KP.LEADER).sum(dim=1)
+            if bool((leaders == 1).all()):
+                recovered = done
+                break
+        dt = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+    finally:
+        untap()
+    held = _loop_held(torch, "loops_storm", taps)
+    step_ms = dt / done * 1e3
+    say("loops_storm", groups=N, replicas=R, ticks=STORM_TICKS, storm_steps=STORM_STEPS,
+        drop_p=STORM_DROP, seed=STORM_SEED, storm_s=storm_s,
+        storm_step_ms=storm_s / STORM_STEPS * 1e3,
+        leader_coverage_after_storm=coverage,
+        post_recovery_coverage=float((leaders == 1).float().mean()),
+        recovery_steps=recovered, recovery_s=dt, recovery_step_ms=step_ms,
+        recovery_ms=None if recovered is None else step_ms * recovered,
+        max_term=int(state.term.max()),
+        launches=json.dumps(launches, separators=(",", ":")), **held, **syncs)
+    check(recovered is not None,
+          f"the storm did not recover to one leader per group in {RECOVERY_MAX} steps")
+    _check_path_launches("loops_storm", launches)
+
+
+def _loops_single(torch, dev):
+    """E: one 3-replica shard, the write loop in chunks of 25."""
+    from dragonboat_tpu_torch import bench_loop as bl
+    from dragonboat_tpu_torch import kernels
+    from dragonboat_tpu_torch.core import params as KP
+
+    R = REPLICAS
+    kp = bl.bench_params(R, dev)
+    state, box = bl.elect_all(kp, R, bl.make_cluster(kp, 1, R, device=dev))
+    lead = state.role == KP.LEADER
+    syncs = _sync_pass(torch, lambda: bl.run_steps(
+        kp, R, SYNC_PASS_STEPS, True, True, state, box), SYNC_PASS_STEPS)
+
+    def window():
+        nonlocal state, box
+        for _ in range(SINGLE_STEPS // SINGLE_CHUNK):
+            state, box = bl.run_steps(kp, R, SINGLE_CHUNK, True, True, state, box)
+
+    kernels.reset_launches()
+    taps, untap = _loop_taps()
+    try:
+        state, box = bl.run_steps(kp, R, SINGLE_CHUNK, True, True, state, box)
+        c0 = _leader_sum(torch, state.committed, lead)
+        _, dt = _timed(torch, window)
+        launches = dict(kernels.launches)
+    finally:
+        untap()
+    held = _loop_held(torch, "loops_single", taps)
+    writes = _leader_sum(torch, state.committed, lead) - c0
+    say("loops_single", groups=1, replicas=R, warm_steps=SINGLE_CHUNK, steps=SINGLE_STEPS,
+        window_s=dt, step_ms=dt / SINGLE_STEPS * 1e3, writes=writes,
+        writes_per_s=writes / dt, launches=json.dumps(launches, separators=(",", ":")),
+        **held, **syncs)
+    check(writes > 0, "the single shard committed nothing")
+    _check_path_launches("loops_single", launches)
+
+
+def _loops_drive(torch, groups: int, dev, steps: int) -> dict:
+    """Every loop of this phase at ``groups`` x 3 on ``dev``, ``steps``
+    steps each, from clusters made the same way: the storm from a cold
+    start (the port's own draw), latency with reads, the mix and two
+    waves on one elected cluster, the served mix on both table kinds.
+    Returns every leaf by loop."""
+    from dragonboat_tpu_torch import bench_loop as bl
+    from dragonboat_tpu_torch.core.kstate import empty_inbox
+    from dragonboat_tpu_torch.rsm.device_kv import DeviceKV
+
+    R, WW = REPLICAS, LOOP_WW
+    G = groups * R
+    z = lambda: torch.zeros((), dtype=torch.int32, device=dev)  # noqa: E731
+    out = {}
+    kp = bl.bench_params(R, dev)
+    st = bl.make_cluster(kp, groups, R, device=dev)
+    st = st._replace(pre_vote=torch.ones_like(st.pre_vote))
+    out.update(_leaves("storm", bl.run_steps_storm(
+        kp, R, steps, STORM_DROP, STORM_SEED, st, empty_inbox(kp, G, dev))))
+    st, bx = bl.elect_all(kp, R, bl.make_cluster(kp, groups, R, device=dev))
+    st, bx, *lat = bl.run_steps_lat(kp, R, steps, WW, True, True, True, 0, st, bx,
+                                    *bl.lat_init(kp, G, device=dev))
+    out.update(_leaves("latency", (st, bx, lat)))
+    st, bx, rd = bl.run_steps_mixed(kp, R, steps, WW, steps, st, bx, z())
+    out.update(_leaves("mixed", (st, bx, rd)))
+    for w in range(2):
+        st = st._replace(pending_cc=torch.zeros_like(st.pending_cc))
+        st, bx, acc, idx = bl.cc_step(kp, R, st, bx)
+        st, bx = bl.run_steps(kp, R, CC_PERIOD - 1, True, True, st, bx)
+        out.update(_leaves(f"wave{w}", (st, bx, acc, idx)))
+    kps = bl.sm_params(R, dev)
+    st, bx = bl.elect_all(kps, R, bl.make_cluster(kps, groups, R, device=dev))
+    for hashed in (False, True):
+        kv = DeviceKV(table_cap=TABLE_CAP, hash_keys=hashed)
+        out.update(_leaves("served_hashed" if hashed else "served_direct",
+                           bl.run_steps_mixed_sm(kps, R, kv, steps, WW, 0, st, bx,
+                                                 kv.init_state(G, dev), z(), z(), z())))
+    return out
+
+
+def _loops_parity(torch, dev) -> None:
+    from dragonboat_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    S = LOOP_PARITY_STEPS
+    card = _loops_drive(torch, CPU_GROUPS, dev, S)
+    cpu = _loops_drive(torch, CPU_GROUPS, torch.device("cpu"), S)
+    bad_cpu = _leaf_diff(torch, card, cpu)
+    kern = _loops_drive(torch, PARITY_GROUPS, dev, S)
+    with kernels.plain_arms():
+        plain = _loops_drive(torch, PARITY_GROUPS, dev, S)
+    bad_plain = _leaf_diff(torch, kern, plain)
+    say("loops_parity", card_vs_cpu=f"{CPU_GROUPS}x{REPLICAS}",
+        kernel_vs_plain=f"{PARITY_GROUPS}x{REPLICAS}", steps=S, leaves=len(card),
+        card_vs_cpu_diff=json.dumps(bad_cpu), kernel_vs_plain_diff=json.dumps(bad_plain),
+        seconds=time.perf_counter() - t0)
+    check(not bad_cpu, f"loops: card != CPU at {CPU_GROUPS}x3: {bad_cpu}")
+    check(not bad_plain, f"loops: kernels != plain arms at {PARITY_GROUPS}x3: {bad_plain}")
+
+
+def phase_loops(torch, dev) -> None:
+    t0 = time.perf_counter()
+    # the sync counter's control: one .item() must count as one sync
+    control = _sync_pass(torch, lambda: int(torch.ones((), device=dev)), 1)
+    check(control["syncs_per_step"] == 1,
+          f"sync debug mode missed a .item(): {control['sync_sites']}")
+    _loops_cluster(torch, dev)
+    _loops_served(torch, dev)
+    _loops_storm(torch, dev)
+    _loops_single(torch, dev)
+    _loops_parity(torch, dev)
+    say("loops", seconds=time.perf_counter() - t0,
+        sync_control=control["sync_sites"])
 
 
 _KV_CLASS = []
@@ -829,33 +1330,35 @@ def _nh_serve(hosts, shards, deadline_s=300.0) -> dict:
             "sync_read_sample": len(sample)}
 
 
-def _tap_k1(module, every: int):
-    """Route ``module``'s K1 call (the step's in core/kernel, the
-    invariant probe's in core/invariants) through a tap that counts every
-    call and clones the inputs of every ``every``-th call (up to
-    K1_TAP_KEEP) before it launches; returns the tap's record and the
-    function that takes the tap out."""
-    orig, rec = module.quorum_match, {"calls": 0, "inputs": []}
+def _tap(module, attr: str, every: int):
+    """Route ``module.attr``, a kernel wrapper as a call site imported it
+    (K1's ``quorum_match`` in core/kernel and core/invariants, K2's
+    ``gather_lanes`` in core/router), through a tap that counts every call
+    and clones the inputs of every ``every``-th call (up to TAP_KEEP)
+    before it launches; returns the tap's record and the function that
+    takes the tap out."""
+    orig, rec = getattr(module, attr), {"calls": 0, "inputs": []}
 
-    def tap(match, voting, quorum):
+    def tap(*args):
         rec["calls"] += 1
-        if (rec["calls"] - 1) % every == 0 and len(rec["inputs"]) < K1_TAP_KEEP:
-            rec["inputs"].append((match.clone(), voting.clone(), quorum.clone()))
-        return orig(match, voting, quorum)
+        if (rec["calls"] - 1) % every == 0 and len(rec["inputs"]) < TAP_KEEP:
+            rec["inputs"].append(tuple(a.clone() for a in args))
+        return orig(*args)
 
-    module.quorum_match = tap
-    return rec, lambda: setattr(module, "quorum_match", orig)
+    setattr(module, attr, tap)
+    return rec, lambda: setattr(module, attr, orig)
 
 
-def _k1_tapped(torch, taps, key: str) -> dict:
-    """K1 against its plain arm on the inputs one call site gave it."""
+def _tapped(torch, taps, key: str, kernel: str = "quorum_match") -> dict:
+    """A kernel against its plain arm on the inputs one call site gave it."""
     from dragonboat_tpu_torch.parallel import fabric_kernels as fk
 
-    check(len(taps) > 0, f"no K1 call was tapped ({key})")
-    shapes = sorted({tuple(m.shape) for m, _, _ in taps})
+    check(len(taps) > 0, f"no {kernel} call was tapped ({key})")
+    fn, plain = getattr(fk, kernel), getattr(fk, kernel + "_plain")
+    shapes = sorted({tuple(args[0].shape) for args in taps})
     mism = err = 0
-    for m, v, q in taps:
-        got, ref = fk.quorum_match(m, v, q), fk.quorum_match_plain(m, v, q)
+    for args in taps:
+        got, ref = fn(*args), plain(*args)
         mism += int((got != ref).sum())
         err = max(err, max_abs_err(torch, got, ref))
     return {f"{key}_calls": len(taps),
@@ -1282,8 +1785,8 @@ def _nh_cell(torch, dev, tag, one_worker=False, reductions=True,
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     ticks: dict = {}
-    step_tap, untap_step = _tap_k1(K, K1_TAP_EVERY)
-    probe_tap, untap_probe = _tap_k1(inv, 1)
+    step_tap, untap_step = _tap(K, "quorum_match", K1_TAP_EVERY)
+    probe_tap, untap_probe = _tap(inv, "quorum_match", 1)
     untime = _time_ticks(ticks)
 
     def restore():
@@ -1308,8 +1811,8 @@ def _nh_cell(torch, dev, tag, one_worker=False, reductions=True,
                 restore()
             if full:
                 extra["k1"] = {
-                    **_k1_tapped(torch, step_tap["inputs"], "k1_tapped"),
-                    **_k1_tapped(torch, probe_tap["inputs"], "k1_probe_tapped")}
+                    **_tapped(torch, step_tap["inputs"], "k1_tapped"),
+                    **_tapped(torch, probe_tap["inputs"], "k1_probe_tapped")}
                 extra["endpoints"] = _nh_endpoints(hosts, NH_SHARDS)
                 extra["reductions"] = _nh_reductions_vs_cpu(torch, hosts)
                 extra["cost"] = _nh_reduction_cost(torch, hosts)
@@ -1451,6 +1954,7 @@ def main() -> int:
     rows = phase_kernels(torch, dev)
     phase_parity(torch, dev)
     launches = phase_slice(torch, dev)
+    phase_loops(torch, dev)
     phase_nodehost(torch, dev, device["nvidia_smi"])
     for r in rows:
         r["launches"] = launches[r["name"]]

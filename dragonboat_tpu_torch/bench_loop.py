@@ -1,15 +1,27 @@
 """Self-driving device loop: the replicated-KV data path end to end.
 
-Port of the reference's ``bench_loop.py`` (the ``run_steps`` and device-SM
-loops).  ``full_step`` is one cluster step (raft step + device routing)
-plus the feedback a host engine would give: proposals on leaders, the
-applied cursor trailing the processed cursor, and the logical clock.
+Port of the reference's ``bench_loop.py``: ``run_steps`` and its pipelined
+form, the device-SM loops (``run_steps_sm`` and the served 9:1 mix
+``run_steps_mixed_sm``), the ReadIndex mix (``run_steps_mixed``), the
+commit-latency loops (``run_steps_lat``), the election storm
+(``run_steps_storm``) and the membership wave's ``cc_step``.
+``full_step`` is one cluster step (raft step + device routing) plus the
+feedback a host engine would give: proposals on leaders, the applied
+cursor trailing the processed cursor, and the logical clock.
 ``full_step_sm`` adds the device state machine: the apply window the step
 releases is applied to a ``DeviceKV`` on every replica through K3.
 
 PyTorch runs eagerly, so the reference's ``fori_loop``s are Python loops
-here; nothing in them reads the device from the host except
+here, and its pipelined loops, whose bodies fuse two steps for XLA, are
+the serial loops at twice the count.  The carries stay tensors on the
+state's device (0-d int32 for the counters) and the clock ``now`` is a
+Python int, so nothing in the loops reads the device from the host except
 ``elect_all``'s convergence check.
+
+The storm's message drops cannot be the reference's threefry bits.  The
+port draws its own from ``storm_keep``, a counter-based hash of (seed,
+micro-step, row, slot) that gives the same bits on the CPU and the card;
+a caller (a differential test) may pass its own keep masks instead.
 """
 
 from __future__ import annotations
@@ -118,6 +130,61 @@ def run_steps(kp: KP.KernelParams, replicas: int, iters: int,
     return state, box
 
 
+def cc_step(kp: KP.KernelParams, replicas: int, state: ShardState,
+            box: Inbox):
+    """One step of the membership-change wave: every leader proposes a
+    config-change entry in lane 0 beside its write batch (the kernel
+    keeps one CC in flight per group; the caller plays the engine and
+    clears ``pending_cc`` once the CC applied).  Returns (state,
+    next_box, accepted_cc [G] bool, cc_index [G] i32)."""
+    inp = _self_input(kp, state, True, True, None, False, 0)
+    prop_cc = inp.prop_cc.clone()
+    prop_cc[:, 0] = True
+    state, out = step(kp, state, box, inp._replace(prop_cc=prop_cc))
+    return (state, route(kp, replicas, out),
+            out.prop_accepted[:, 0], out.prop_index[:, 0])
+
+
+# ---------------------------------------------------------------------------
+# pipelined (double-pumped) loops: two micro-steps per iteration, the clock
+# and the storm's draw advancing per micro-step.  The reference fuses the
+# pair into one fori_loop body for XLA; run eagerly that is the serial loop
+# at 2n, so these are calls to it.
+# ---------------------------------------------------------------------------
+
+
+def run_steps_pipelined(kp: KP.KernelParams, replicas: int, iters: int,
+                        tick: bool, propose: bool, state: ShardState,
+                        box: Inbox):
+    """``iters`` pipeline steps of two micro-steps each:
+    ``run_steps(kp, replicas, 2 * iters, ...)``."""
+    return run_steps(kp, replicas, 2 * iters, tick, propose, state, box)
+
+
+def run_steps_mixed(kp: KP.KernelParams, replicas: int, iters: int,
+                    write_width: int, now0: int, state: ShardState, box: Inbox,
+                    reads):
+    """The read/write mix without latency capture: writes narrowed to
+    ``write_width`` lanes, one batched ReadIndex ctx per leader per step
+    with ctx ``now0 + i``; ``reads`` (0-d int32) counts completed ctxs.
+    Returns (state, box, reads)."""
+    for i in range(iters):
+        inp = _self_input(kp, state, True, True, write_width, True, now0 + i)
+        state, out = step(kp, state, box, inp)
+        box = route(kp, replicas, out)
+        reads = reads + out.rtr_valid.sum(dtype=I32)
+    return state, box, reads
+
+
+def run_steps_mixed_pipelined(kp: KP.KernelParams, replicas: int, iters: int,
+                              write_width: int, now0: int, state: ShardState,
+                              box: Inbox, reads):
+    """Pipelined 9:1 mix: the ctx clock advances per micro-step
+    (now0 + 2i, now0 + 2i + 1), i.e. ``run_steps_mixed(2 * iters)``."""
+    return run_steps_mixed(kp, replicas, 2 * iters, write_width, now0,
+                           state, box, reads)
+
+
 def make_device_sm(num_groups: int, replicas: int = 3,
                    table_cap: int = 1024, device=None):
     """(DeviceKV, kv_state) sized for the bench cluster.  Direct-mapped:
@@ -127,18 +194,13 @@ def make_device_sm(num_groups: int, replicas: int = 3,
     return kv, kv.init_state(num_groups * replicas, resolve_device(device))
 
 
-def full_step_sm(kp: KP.KernelParams, replicas: int, kv: DeviceKV,
-                 state: ShardState, box: Inbox, kv_state: dict,
-                 tick: bool, propose: bool):
-    """``full_step`` plus the device state machine: the apply window the
-    step releases, read from the replicated lv ring (valid on leaders and
-    followers), goes through K3 on every replica.  On the card ``kv_state``
-    is updated in place.  Returns (state, box, kv_state, n_rejected, out),
-    ``n_rejected`` a 0-d int32 tensor left on the device."""
-    if not kp.inline_payloads:
-        raise ValueError("device-SM path needs sm_params()")
+def _apply_released(kp: KP.KernelParams, kv: DeviceKV, kv_state: dict,
+                    state: ShardState, out):
+    """The apply window the step released, read from the post-step lv ring
+    (valid on leaders and followers), through K3 on every replica: entry
+    i writes key ``i mod key space`` = its payload.  Returns (kv_state,
+    n_rejected), ``n_rejected`` a 0-d int32 tensor left on the device."""
     CAP, AB = kp.log_cap, kp.apply_batch
-    state, box2, out = full_step(kp, replicas, state, box, tick, propose)
     lanes = torch.arange(AB, dtype=I32, device=state.term.device)
     idx = out.apply_first[:, None] + lanes[None, :]
     valid = idx <= out.apply_last[:, None]                   # [G, AB]
@@ -147,7 +209,19 @@ def full_step_sm(kp: KP.KernelParams, replicas: int, kv: DeviceKV,
     cmds = torch.stack([idx & (key_space - 1), vals], dim=-1)  # [G, AB, 2]
     kv_state, (_results, ok) = apply_window(kv, kv_state, cmds, valid)
     # a rejected committed write is surfaced, not swallowed
-    n_rejected = (~ok & valid).sum(dtype=I32)
+    return kv_state, (~ok & valid).sum(dtype=I32)
+
+
+def full_step_sm(kp: KP.KernelParams, replicas: int, kv: DeviceKV,
+                 state: ShardState, box: Inbox, kv_state: dict,
+                 tick: bool, propose: bool):
+    """``full_step`` plus the device state machine (``_apply_released``).
+    On the card ``kv_state`` is updated in place.  Returns (state, box,
+    kv_state, n_rejected, out)."""
+    if not kp.inline_payloads:
+        raise ValueError("device-SM path needs sm_params()")
+    state, box2, out = full_step(kp, replicas, state, box, tick, propose)
+    kv_state, n_rejected = _apply_released(kp, kv, kv_state, state, out)
     return state, box2, kv_state, n_rejected, out
 
 
@@ -162,6 +236,202 @@ def run_steps_sm(kp: KP.KernelParams, replicas: int, kv: DeviceKV,
             kp, replicas, kv, state, box, kv_state, tick, propose)
         rej = rej + r
     return state, box, kv_state, rej
+
+
+def wrap_i32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor reduced mod 2**32 to int32, two's complement: what
+    an int32 sum that wraps gives, whatever the order of its terms."""
+    return (((x + 2**31) & 0xFFFFFFFF) - 2**31).to(I32)
+
+
+def run_steps_mixed_sm(kp: KP.KernelParams, replicas: int, kv: DeviceKV,
+                       iters: int, write_width: int, now0: int,
+                       state: ShardState, box: Inbox, kv_state: dict, reads,
+                       acc, rejects):
+    """The 9:1 mix with reads served: the device-SM write path
+    (``_apply_released``) plus one batched
+    ReadIndex ctx per leader per step, and for every ctx that is servable
+    (confirmed and applied past: ``rix <= processed`` after the step) a
+    window of ``9 * write_width`` keys below the ctx index read from the
+    device table by a slot scan.  Direct-mapped slots test their own
+    position, hashed slots their stored key.  ``reads`` counts served
+    ctxs, ``acc`` folds the read values (an int32 sum that wraps),
+    ``rejects`` the refused committed writes; all three are 0-d int32 and
+    accumulate across calls.  On the card ``kv_state`` is updated in
+    place.  Returns (state, box, kv_state, reads, acc, rejects)."""
+    if not kp.inline_payloads:
+        raise ValueError("device-SM path needs sm_params()")
+    T = kv.table_cap
+    KS = T // 2 if kv.hash_keys else T      # key space (as _apply_released)
+    RB = 9 * write_width
+    slots = torch.arange(T, dtype=I32, device=state.term.device)
+    for i in range(iters):
+        inp = _self_input(kp, state, True, True, write_width, True, now0 + i)
+        state, out = step(kp, state, box, inp)
+        box = route(kp, replicas, out)
+        kv_state, rej = _apply_released(kp, kv, kv_state, state, out)
+        rejects = rejects + rej
+        # read side: the newest confirmed ctx per lane, served only once
+        # the state machine has applied past its index (never stale)
+        rix = torch.where(out.rtr_valid, out.rtr_index, 0).amax(dim=1)
+        served = out.rtr_valid.any(dim=1) & (rix <= state.processed)
+        if kv.hash_keys:
+            # stored key (keys - 1; 0 = empty) against the served window,
+            # modulo the key space
+            keys = kv_state["keys"]
+            d = (rix[:, None] - 1 - (keys - 1)) & (KS - 1)
+            hit = (d < RB) & (keys > 0) & served[:, None]
+        else:
+            d = (rix[:, None] - 1 - slots[None, :]) & (T - 1)
+            hit = (d < RB) & served[:, None]
+        got = torch.where(hit, kv_state["vals"], 0).sum(dtype=torch.int64)
+        acc = wrap_i32(acc.to(torch.int64) + got)
+        reads = reads + served.sum(dtype=I32)
+    return state, box, kv_state, reads, acc, rejects
+
+
+# ---------------------------------------------------------------------------
+# commit latency: a stamp ring records the step each accepted proposal
+# entered the log; releases on leader rows are bucketed by steps waited
+# ---------------------------------------------------------------------------
+
+LAT_BUCKETS = 64  # steps-to-release, 1-step buckets, last bucket saturates
+
+
+def lat_init(kp: KP.KernelParams, G: int, device=None):
+    """(stamp ring [G, log_cap], histogram [LAT_BUCKETS], completed-ctx
+    counter), int32 on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+    return (torch.zeros((G, kp.log_cap), dtype=I32, device=dev),
+            torch.zeros((LAT_BUCKETS,), dtype=I32, device=dev),
+            torch.zeros((), dtype=I32, device=dev))
+
+
+def _stamp_accepts(kp: KP.KernelParams, stamp, out, now: int):
+    """Stamp ``now`` into the ring slot of every accepted proposal.  The
+    reference's [G, B, CAP] one-hot becomes a scatter-add of the accept
+    flags; lanes that share a slot all write the same ``now``."""
+    idx = (out.prop_index & (kp.log_cap - 1)).long()
+    hits = torch.zeros_like(stamp).scatter_add_(
+        1, idx, out.prop_accepted.to(I32))
+    return stamp.masked_fill(hits > 0, now)
+
+
+def _bucket_releases(kp: KP.KernelParams, stamp, hist, out, now: int,
+                     is_leader):
+    """Add ``now - stamp`` (clipped to the last bucket) of every entry
+    released on a leader row this step to the histogram; only leader rows
+    carry stamps.  The reference's one-hot sum is a scatter-add of the
+    valid flags into the buckets: same int32 counts."""
+    CAP, AB = kp.log_cap, kp.apply_batch
+    lanes = torch.arange(AB, dtype=I32, device=stamp.device)
+    idx = out.apply_first[:, None] + lanes[None, :]
+    valid = (idx <= out.apply_last[:, None]) & is_leader[:, None]
+    st = torch.gather(stamp, 1, (idx & (CAP - 1)).long())
+    lat = (now - st).clamp(0, LAT_BUCKETS - 1)
+    return hist.scatter_add(0, lat.reshape(-1).long(),
+                            valid.reshape(-1).to(I32))
+
+
+def full_step_lat(kp: KP.KernelParams, replicas: int, write_width: int,
+                  do_reads: bool, state: ShardState, box: Inbox, tick: bool,
+                  propose: bool, now: int, stamp, hist, reads):
+    """``full_step`` plus latency stamping and, with ``do_reads``, one
+    batched ReadIndex per leader; returns (state, box, stamp, hist,
+    reads)."""
+    is_leader = state.role == KP.LEADER
+    inp = _self_input(kp, state, tick, propose, write_width, do_reads, now)
+    state, out = step(kp, state, box, inp)
+    nxt = route(kp, replicas, out)
+    stamp = _stamp_accepts(kp, stamp, out, now)
+    hist = _bucket_releases(kp, stamp, hist, out, now, is_leader)
+    reads = reads + out.rtr_valid.sum(dtype=I32)
+    return state, nxt, stamp, hist, reads
+
+
+def run_steps_lat(kp: KP.KernelParams, replicas: int, iters: int,
+                  write_width: int, do_reads: bool, tick: bool, propose: bool,
+                  now0: int, state, box, stamp, hist, reads):
+    """``iters`` instrumented steps at clock ``now0 + i``; returns
+    (state, box, stamp, hist, reads)."""
+    for i in range(iters):
+        state, box, stamp, hist, reads = full_step_lat(
+            kp, replicas, write_width, do_reads, state, box, tick, propose,
+            now0 + i, stamp, hist, reads)
+    return state, box, stamp, hist, reads
+
+
+def run_steps_lat_pipelined(kp: KP.KernelParams, replicas: int, iters: int,
+                            write_width: int, do_reads: bool, tick: bool,
+                            propose: bool, now0: int, state, box, stamp, hist,
+                            reads):
+    """Instrumented pipelined loop: both micro-steps of pipeline step i
+    stamp and bucket at ``now0 + i``, so the histogram counts pipeline
+    steps.  Not equal to ``run_steps_lat`` by construction (the stamps
+    differ); the uninstrumented pipelined loops are the bitwise ones."""
+    for i in range(iters):
+        for _ in (0, 1):
+            state, box, stamp, hist, reads = full_step_lat(
+                kp, replicas, write_width, do_reads, state, box, tick,
+                propose, now0 + i, stamp, hist, reads)
+    return state, box, stamp, hist, reads
+
+
+# ---------------------------------------------------------------------------
+# election storm: random message drops (pre-vote keeps terms bounded),
+# then recovery to one leader per group on a clean network
+# ---------------------------------------------------------------------------
+
+
+def storm_keep(seed: int, micro_step: int, drop_p: float, like: torch.Tensor):
+    """The port's drop draw: a keep mask shaped and placed like ``like``
+    (the inbox's ``[G, K]`` mtype), True where the message survives.  Each
+    slot's 32 bits are splitmix32 of (row * K + slot) xor a key mixed from
+    (seed, micro_step), so the mask depends on nothing else and is the
+    same on the CPU and the card; a slot drops when its bits fall below
+    ``drop_p * 2**32``."""
+    key = int(KP.splitmix32(int(KP.splitmix32(seed & KP.U32_MASK))
+                            ^ (micro_step & KP.U32_MASK)))
+    flat = torch.arange(like.numel(), dtype=torch.int64, device=like.device)
+    bits = KP.splitmix32_t(flat.reshape(like.shape) ^ key)
+    return bits >= min(round(float(drop_p) * 2**32), 2**32)
+
+
+def _drop_box(box: Inbox, keep: torch.Tensor) -> Inbox:
+    """Zero every routed message where ``keep [G, K]`` is False (a dropped
+    slot is all-zero, the kernel's empty-slot contract)."""
+    def z(x):
+        if x is None:
+            return None
+        k = keep if x.dim() == keep.dim() else keep[..., None]
+        return x.masked_fill(~k, 0)
+
+    return type(box)(*[z(f) for f in box])
+
+
+def run_steps_storm(kp: KP.KernelParams, replicas: int, iters: int,
+                    drop_p: float, seed: int, state: ShardState, box: Inbox,
+                    *, keep_masks=None):
+    """``iters`` ticking steps, no proposals, the routed inbox of step i
+    thinned by ``storm_keep(seed, i, drop_p)``, or by ``keep_masks[i]``
+    (``[G, K]`` bool each) when the caller gives them.  Returns (state,
+    box)."""
+    for i in range(iters):
+        state, box, _ = full_step(kp, replicas, state, box, True, False)
+        keep = (storm_keep(seed, i, drop_p, box.mtype)
+                if keep_masks is None else keep_masks[i])
+        box = _drop_box(box, keep)
+    return state, box
+
+
+def run_steps_storm_pipelined(kp: KP.KernelParams, replicas: int, iters: int,
+                              drop_p: float, seed: int, state: ShardState,
+                              box: Inbox, *, keep_masks=None):
+    """Pipelined storm: the draw advances per micro-step (2i, 2i + 1;
+    ``keep_masks`` holds ``2 * iters`` masks), i.e.
+    ``run_steps_storm(2 * iters)``."""
+    return run_steps_storm(kp, replicas, 2 * iters, drop_p, seed, state, box,
+                           keep_masks=keep_masks)
 
 
 def elect_all(kp: KP.KernelParams, replicas: int, state: ShardState,

@@ -36,6 +36,22 @@ def test_port_imports_no_jax_and_no_reference_package():
         kv, kvs = bl.make_device_sm(2, 3, table_cap=128, device="cpu")
         st, box, kvs, rej = bl.run_steps_sm(kp, 3, kv, 4, True, True, st, box, kvs)
         assert int(rej) == 0 and int(kvs["count"].sum()) > 0
+        # the other bench loops, a few steps each
+        import torch
+        z = lambda: torch.zeros((), dtype=torch.int32)  # noqa: E731
+        st, box, kvs, rd, acc, rej = bl.run_steps_mixed_sm(
+            kp, 3, kv, 3, 4, 0, st, box, kvs, z(), z(), z())
+        st, box, *lat = bl.run_steps_lat(kp, 3, 2, 4, True, True, True, 0, st, box,
+                                         *bl.lat_init(kp, 6, device="cpu"))
+        st, box, *lat = bl.run_steps_lat_pipelined(kp, 3, 1, 4, True, True, True, 2,
+                                                   st, box, *lat)
+        st, box, rd = bl.run_steps_mixed(kp, 3, 2, 4, 0, st, box, rd)
+        st, box, rd = bl.run_steps_mixed_pipelined(kp, 3, 1, 4, 2, st, box, rd)
+        st, box, acc_cc, idx_cc = bl.cc_step(kp, 3, st, box)
+        st, box = bl.run_steps_pipelined(kp, 3, 1, True, True, st, box)
+        st, box = bl.run_steps_storm(kp, 3, 2, 0.25, 1, st, box)
+        st, box = bl.run_steps_storm_pipelined(kp, 3, 1, 0.25, 1, st, box)
+        assert int(rej) == 0 and int(rd) > 0
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "dragonboat_tpu" or m.startswith("dragonboat_tpu."))
