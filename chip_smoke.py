@@ -7,22 +7,35 @@ Phases, each printing one line (any failure exits non-zero):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the three CUDA kernels (csrc/*.cu) with nvcc;
-3. kernels: K1, K2 and K3 against their plain PyTorch arms on the card at
-   the slice's shapes, bitwise, with CUDA-event times, the bytes bound and
-   (where one PyTorch call computes the same function) that call's time;
-   K3 also over the cases of ``K3_CASES`` (one ``[k3case]`` line each, with
-   the rows that took its serial branch), beside the one-pass range apply
-   and the bound of two full passes over the table (what a whole-row
-   design moves); K1 and K2 beside the launch floor, K2 on one row;
-   K1 also at the NodeHost path's shape [1024, 5] with the engine's mix
-   of inputs (absent peers, 0-5 voters, quorums 1-5, ties), timed;
+3. kernels: every entry of K1, K2 and K3 against its plain PyTorch arm
+   on the card at the slice's shapes, bitwise, with CUDA-event times, the
+   bytes bound and (where one PyTorch call computes the same function)
+   that call's time; K3 also over the cases of ``K3_CASES`` (one
+   ``[k3case]`` line each, with the rows that took its serial branch),
+   beside the one-pass range apply and the bound of two full passes over
+   the table (what a whole-row design moves); K1 and K2 beside the launch
+   floor, K2 on one row.  K1's entries: ``quorum_match`` (the TPU
+   kernel's signature, also at the NodeHost path's shape [1024, 5] with
+   the engine's mix of inputs: absent peers, 0-5 voters, quorums 1-5,
+   ties) and ``commit_quorum`` (the step's, voting and quorum from the
+   kinds; all voters at [24576, 3], random kinds with 0-5 voters at
+   [1024, 5], ties at P = 8), beside the step's path before it (the eager
+   mask and count, then ``quorum_match``).  K2's: ``gather_lanes`` (the
+   TPU kernel's signature) and ``gather_lanes_multi`` on the six fields
+   and two lanes of a real route at 8192 x 3, beside the route's pick
+   before it (twelve ``gather_lanes`` launches with their transposes and
+   casts) and 12 x the one-field time;
 4. parity: the kernel path against the plain path on the card at
    1024 groups x 3, and the card against the CPU at 64 groups x 3, over
    elect_all + 40 run_steps_sm steps, every state and table leaf equal;
 5. slice: 8192 groups x 3 replicas with a 1024-slot DeviceKV per replica,
-   elect_all, a timed window of run_steps_sm steps, a settle, and the
-   read-back of every replica's applied write; launch counts of every
-   kernel are taken over this phase alone;
+   elect_all, a timed window of run_steps_sm steps, PROFILE_STEPS more
+   under torch.profiler (CUDA launches per step, beside the 10,807 the
+   step made before K1 and K2 took their batched entries), a
+   settle, and the read-back of every replica's applied write; launch
+   counts of every kernel are taken over this phase alone: exactly 16 K1
+   (the count a CPU step at this geometry makes) and 1 K2 launches per
+   step, one K3 per device-SM step;
 6. loops: the rest of ``bench_loop`` at ``bench.py``'s default shapes on
    a device, one line per loop, each with its K1/K2/K3 launches (counts
    reset before the loop's driven steps) and the host syncs of an untimed
@@ -40,9 +53,11 @@ Phases, each printing one line (any failure exits non-zero):
    10,000 x 3 with pre-vote (10 ticks, 30 steps at drop 0.25, clean chunks
    of 10 until exactly one leader per group, at most 400)
    ``[loops_storm]``; one shard for 200 steps ``[loops_single]``.  Each
-   line also holds K1 and K2, bitwise, against their plain arms on the
-   inputs of every 37th call the loop made (its own shapes: 24,576 rows,
-   30,000 for the storm, 3 for the single shard).  Then every loop card
+   loop must launch exactly 16 K1 and 1 K2 per step it drove.  Each
+   line also holds K1 and K2 (the step's ``commit_quorum`` and the
+   route's ``gather_lanes_multi``), bitwise, against their plain arms on
+   the inputs of every 37th call the loop made (its own shapes: 24,576
+   rows, 30,000 for the storm, 3 for the single shard).  Then every loop card
    against CPU at 64 x 3 and kernels against plain arms at 1024 x 3,
    every leaf equal ``[loops_parity]`` (the pipelined loops are the
    serial ones at 2n, so they are not driven apart);
@@ -58,7 +73,9 @@ Phases, each printing one line (any failure exits non-zero):
    on a sample (sync_read); engine step ms over the whole cell and over
    the write window; each reduction tick's and the capacity tick's host
    ms over the cell; K1's launches over this cell alone, split into the
-   step's and the invariant probe's, and K1 against its plain arm on a
+   step's (``commit_quorum``, exactly as many per engine step as a CPU
+   step at the engine's geometry makes: 21) and the
+   invariant probe's (``quorum_match``), and K1 against its plain arm on a
    sample of the inputs each call site gave it ``[nodehost]``.  Then, on
    every host: ``/metrics`` (the leader counts sum to 1024), ``/healthz``
    200, ``/debug/groups`` and ``/debug/group/<id>`` through the port's
@@ -76,7 +93,8 @@ Phases, each printing one line (any failure exits non-zero):
    the card and on the CPU, every engine state leaf, every reduction
    snapshot and every replica's applied index and contents equal after
    every round;
-8. the ``kernels`` JSON line (launches: phase 5's), then the final
+8. the ``kernels`` JSON line, one row per kernel with the numbers of the
+   entry the main path launches (launches: phase 5's), then the final
    ``{"ok": true, ...}`` line.
 
 Every number the run takes is printed on these lines.  Needs no network
@@ -131,6 +149,16 @@ NH_PARITY_ROUNDS = 24
 # K1 on the NodeHost path: kernel_capacity rows x kernel_num_peers
 ENGINE_G, ENGINE_P = 1024, 5
 K1_TAP_EVERY, TAP_KEEP = 25, 16
+# K2 launches per route (one gather_lanes_multi); K1 launches per step
+# are counted on a CPU step at the path's geometry (_k1_calls_per_step):
+# 16 at the bench's inbox_cap 10, more at the engine's wider inbox
+K2_PER_ROUTE = 1
+# phase 5's steps under torch.profiler, and the CUDA launches per step
+# at 8192 x 3 before K1 and K2 took their batched entries
+# (profile_slice.py on an H100; PERF.md section 5)
+PROFILE_STEPS, LAUNCHES_PER_STEP_BEFORE = 6, 10807
+# the entry of each kernel that the main path launches
+MAIN_PATH_ENTRIES = ("commit_quorum", "gather_lanes_multi", "kv_apply")
 # the ExpertConfig switches that turn the three decimated reductions off
 REDUCTIONS_OFF = dict(fleet_stats_every=0, health_top_k=0,
                       invariant_probe=False)
@@ -326,7 +354,7 @@ def _k1(torch, dev, gen) -> dict:
                  lambda: fk.quorum_match_plain(m3, v3, q3), None),
     }
     return {
-        "name": "quorum_match", "route": "cuda",
+        "name": "quorum_match", "kernel": "quorum_match", "route": "cuda",
         "source": "dragonboat_tpu_torch/csrc/quorum_match.cu",
         "replaces": "dragonboat_tpu/parallel/fabric_pallas.py:177",
         "shape": f"match [{G}, {P}] i32, voting [{G}, {P}] bool, quorum [{G}] i32",
@@ -337,6 +365,103 @@ def _k1(torch, dev, gen) -> dict:
         **_times(torch, lambda: fk.quorum_match(match, voting, quorum),
                  lambda: fk.quorum_match_plain(match, voting, quorum),
                  lambda: torch.kthvalue(mv, k, dim=1)),
+    }
+
+
+def _commit_engine_kinds(torch, gen):
+    """Peer kinds as the NodeHost path's step sees them, at [ENGINE_G,
+    ENGINE_P]: 0-5 voters a row (mostly 3), some of them witnesses, the
+    other slots absent or non-voting, in any order; row 0 has none."""
+    from dragonboat_tpu_torch.core import params as KP
+
+    G, P = ENGINE_G, ENGINE_P
+    nv = torch.multinomial(torch.tensor([0.05, 0.05, 0.1, 0.55, 0.1, 0.15]),
+                           G, replacement=True, generator=gen)
+    nv[0] = 0
+    voter = torch.rand((G, P), generator=gen).argsort(dim=1) < nv[:, None]
+    witness = torch.rand((G, P), generator=gen) < 0.2
+    other = torch.rand((G, P), generator=gen) < 0.5
+    return torch.where(voter, torch.where(witness, KP.K_WITNESS, KP.K_VOTER),
+                       torch.where(other, KP.K_NON_VOTING, KP.K_ABSENT)).to(torch.int32)
+
+
+def _commit_path_before(match, kind):
+    """The step's commit-rule call before commit_quorum: the voting mask
+    and the quorum built by eager launches, then quorum_match."""
+    import torch
+
+    from dragonboat_tpu_torch.core import params as KP
+    from dragonboat_tpu_torch.parallel import fabric_kernels as fk
+
+    voting = (kind == KP.K_VOTER) | (kind == KP.K_WITNESS)
+    return fk.quorum_match(match, voting, voting.sum(dim=1, dtype=torch.int32) // 2 + 1)
+
+
+def _commit_bytes(G: int, P: int) -> int:
+    return G * (4 * P + 4 * P + 4)
+
+
+def _commit_ops(G: int, P: int) -> int:
+    return G * (3 * P * P + 6 * P)
+
+
+def _k1_commit(torch, dev, gen) -> dict:
+    """K1's batched entry, commit_quorum(match, kind): all voters at the
+    slice's [24576, 3] (the timed case), random kinds at [24576, 3] and at
+    the NodeHost path's [1024, 5], ties and every kind at P = 8."""
+    from dragonboat_tpu_torch.core import params as KP
+    from dragonboat_tpu_torch.parallel import fabric_kernels as fk
+
+    G, P = SLICE_GROUPS * REPLICAS, REPLICAS
+    match = torch.randint(0, 1 << 20, (G, P), generator=gen, dtype=torch.int32).to(dev)
+    kind = torch.full((G, P), KP.K_VOTER, dtype=torch.int32, device=dev)
+    cases = [(match, kind)]
+    mixed = torch.randint(KP.K_ABSENT, KP.K_WITNESS + 1, (G, P), generator=gen,
+                          dtype=torch.int32).to(dev)
+    cases.append((match, mixed))
+    m8 = torch.randint(0, 6, (4096, 8), generator=gen, dtype=torch.int32).to(dev)
+    k8 = torch.randint(KP.K_ABSENT, KP.K_WITNESS + 1, (4096, 8), generator=gen,
+                       dtype=torch.int32).to(dev)
+    k8[0] = KP.K_NON_VOTING
+    cases.append((m8, k8))
+    m5 = _k1_engine_inputs(torch, dev, gen)[0]
+    k5 = _commit_engine_kinds(torch, gen).to(dev)
+    cases.append((m5, k5))
+    mism, err = [], 0
+    for m, k in cases:
+        got, ref = fk.commit_quorum(m, k), fk.commit_quorum_plain(m, k)
+        torch.cuda.synchronize()
+        mism.append(int((got != ref).sum()))
+        err = max(err, max_abs_err(torch, got, ref))
+    before = _commit_path_before
+    check(bool((before(match, kind) == fk.commit_quorum_plain(match, kind)).all()),
+          "the step's previous commit path disagrees with commit_quorum's plain arm")
+    b_ms, b_by = bound(_commit_bytes(G, P), _commit_ops(G, P))
+    e_ms, e_by = bound(_commit_bytes(ENGINE_G, ENGINE_P), _commit_ops(ENGINE_G, ENGINE_P))
+    voters = ((k5 == KP.K_VOTER) | (k5 == KP.K_WITNESS)).sum(dim=1)
+    engine = {
+        "shape": f"match [{ENGINE_G}, {ENGINE_P}] i32, kind [{ENGINE_G}, {ENGINE_P}] i32",
+        "mismatches": mism[3], "rows_by_voters": json.dumps(
+            torch.bincount(voters.cpu(), minlength=ENGINE_P + 1).tolist()),
+        "bound_ms": e_ms, "bound_by": e_by,
+        "before_ms": cuda_ms(torch, lambda: before(m5, k5))[0],
+        **_times(torch, lambda: fk.commit_quorum(m5, k5),
+                 lambda: fk.commit_quorum_plain(m5, k5), None),
+    }
+    return {
+        "name": "commit_quorum", "kernel": "quorum_match", "route": "cuda",
+        "source": "dragonboat_tpu_torch/csrc/quorum_match.cu",
+        "replaces": "dragonboat_tpu/parallel/fabric_pallas.py:177",
+        "shape": f"match [{G}, {P}] i32, kind [{G}, {P}] i32",
+        "mismatches": sum(mism), "mismatches_by_case": json.dumps(mism),
+        "max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+        "engine_shape": engine,
+        # the step's path before: the mask and count launches, then K1
+        "before_ms": cuda_ms(torch, lambda: before(match, kind))[0],
+        # kthvalue takes one k for every row and no mask: no single
+        # PyTorch call computes the function
+        **_times(torch, lambda: fk.commit_quorum(match, kind),
+                 lambda: fk.commit_quorum_plain(match, kind), None),
     }
 
 
@@ -360,7 +485,7 @@ def _k2(torch, dev, gen) -> dict:
     idx_in = idx.clamp(max=K - 1).long()
     b_ms, b_by = bound(G * K * 4 + G * M * 4 + G * M * 4, G * M * 2)
     return {
-        "name": "gather_lanes", "route": "cuda",
+        "name": "gather_lanes", "kernel": "gather_lanes", "route": "cuda",
         "source": "dragonboat_tpu_torch/csrc/gather_lanes.cu",
         "replaces": "dragonboat_tpu/parallel/fabric_pallas.py:101",
         "shape": f"vals [{G}, {K}] i32, idx [{G}, {M}] i32",
@@ -369,6 +494,82 @@ def _k2(torch, dev, gen) -> dict:
         **_times(torch, lambda: fk.gather_lanes(vals, idx),
                  lambda: fk.gather_lanes_plain(vals, idx),
                  lambda: torch.gather(vals, 1, idx_in)),
+    }
+
+
+def _pick_before(fields, lanes):
+    """The route's response pick before gather_lanes_multi: per lane and
+    field, the field as [(n, s), K] i32, the lane transposed into a
+    contiguous [(n, s), t] index, one gather_lanes launch, the result
+    transposed back and cast to the field's dtype."""
+    import torch
+
+    from dragonboat_tpu_torch.parallel import fabric_kernels as fk
+
+    N, Rt, Rs = lanes[0].shape
+
+    def pick(f, lane):
+        vals = f.reshape(N * Rs, -1).to(torch.int32).contiguous()
+        idx = lane.transpose(1, 2).reshape(N * Rs, Rt).contiguous()
+        got = fk.gather_lanes(vals, idx).reshape(N, Rs, Rt).transpose(1, 2)
+        return got.to(f.dtype)
+
+    return tuple(tuple(pick(f, lane) for f in fields) for lane in lanes)
+
+
+def _route_pick_inputs(torch, dev):
+    """The six response fields and two lanes the route handed K2 on the
+    second self-driving step with proposals after elect_all, 8192 x 3."""
+    from dragonboat_tpu_torch import bench_loop as bl
+    from dragonboat_tpu_torch.core import router
+
+    kp = bl.sm_params(REPLICAS, dev)
+    state, box = bl.elect_all(kp, REPLICAS, bl.make_cluster(kp, SLICE_GROUPS, REPLICAS,
+                                                            device=dev))
+    rec, untap = _tap(router, "gather_lanes_multi", 1)
+    try:
+        for _ in range(2):
+            state, box, _out = bl.full_step(kp, REPLICAS, state, box, True, True)
+    finally:
+        untap()
+    check(rec["calls"] == 2, f"two routes called gather_lanes_multi {rec['calls']} times")
+    return rec["inputs"][-1]
+
+
+def _k2_multi(torch, dev) -> dict:
+    """K2's batched entry, gather_lanes_multi(fields, lanes), on the
+    inputs of a real route at 8192 x 3."""
+    from dragonboat_tpu_torch.parallel import fabric_kernels as fk
+
+    fields, lanes = _route_pick_inputs(torch, dev)
+    got = _flat(fk.gather_lanes_multi(fields, lanes))
+    ref = _flat(fk.gather_lanes_multi_plain(fields, lanes))
+    old = _flat(_pick_before(fields, lanes))
+    torch.cuda.synchronize()
+    mism = sum(int((a != b).sum()) for a, b in zip(got, ref))
+    mism += sum(int((a != b).sum()) for a, b in zip(got, old))
+    mism += sum(a.dtype != b.dtype or a.shape != b.shape for a, b in zip(got, ref))
+    err = max(max_abs_err(torch, a, b) for a, b in zip(got, ref))
+    K = fields[0].shape[1]
+    nbytes = sum(t.numel() * t.element_size() for t in (*fields, *lanes, *got))
+    N, Rt, Rs = lanes[0].shape
+    b_ms, b_by = bound(nbytes, N * Rt * Rs * len(lanes) * (2 + 2 * len(fields)))
+    return {
+        "name": "gather_lanes_multi", "kernel": "gather_lanes", "route": "cuda",
+        "source": "dragonboat_tpu_torch/csrc/gather_lanes.cu",
+        "replaces": "dragonboat_tpu/parallel/fabric_pallas.py:101",
+        "shape": (f"{len(fields)} fields [{fields[0].shape[0]}, {K}] "
+                  f"({', '.join(str(f.dtype).replace('torch.', '') for f in fields)}), "
+                  f"{len(lanes)} lanes [{N}, {Rt}, {Rs}] i32"),
+        "mismatches": mism, "max_abs_err": err, "bytes": nbytes,
+        "lanes_in_use": json.dumps([int((lane < K).sum()) for lane in lanes]),
+        "lane_positions": N * Rt * Rs,
+        "bound_ms": b_ms, "bound_by": b_by,
+        # the route's pick before: twelve launches of the one-field entry
+        # with their index transposes and casts
+        "before_ms": cuda_ms(torch, lambda: _pick_before(fields, lanes))[0],
+        **_times(torch, lambda: fk.gather_lanes_multi(fields, lanes),
+                 lambda: fk.gather_lanes_multi_plain(fields, lanes), None),
     }
 
 
@@ -529,7 +730,7 @@ def _k3(torch, dev, gen) -> dict:
                    plain_graph=False)
     times["timing"]["range_ms"] = range_how
     return {
-        "name": "kv_apply", "route": "cuda",
+        "name": "kv_apply", "kernel": "kv_apply", "route": "cuda",
         "source": "dragonboat_tpu_torch/csrc/kv_apply.cu",
         "replaces": "dragonboat_tpu/rsm/device_kv_pallas.py:141",
         "shape": f"table [{G}, {T}] i32 x2, cmds [{G}, {AB}, 2] i32, direct-mapped",
@@ -553,20 +754,29 @@ def _launch_floor_ms(torch, dev) -> float:
 
 def phase_kernels(torch, dev) -> list[dict]:
     gen = torch.Generator().manual_seed(SEED)
-    rows = [_k1(torch, dev, gen), _k2(torch, dev, gen), _k3(torch, dev, gen)]
+    rows = [_k1(torch, dev, gen), _k1_commit(torch, dev, gen), _k2(torch, dev, gen),
+            _k2_multi(torch, dev), _k3(torch, dev, gen)]
     floor_ms = _launch_floor_ms(torch, dev)
-    for r in rows[:2]:
-        r["launch_floor_ms"] = floor_ms
+    by = {r["name"]: r for r in rows}
+    # the route's twelve one-field launches, timed in this call
+    by["gather_lanes_multi"]["single_x12_ms"] = 12 * by["gather_lanes"]["ms"]
+    for r in rows:
+        if r["kernel"] != "kv_apply":
+            r["launch_floor_ms"] = floor_ms
     for r in rows:
         if "range_ms" in r:
             extra = {k: r[k] for k in ("full_table_bound_ms", "range_ms", "range_over_kernel")}
             extra.update({k: json.dumps(r[k], separators=(",", ":"))
                           for k in ("rejects", "serial_rows")})
         else:
-            extra = {"launch_floor_ms": r["launch_floor_ms"]}
+            extra = {k: r[k] for k in ("launch_floor_ms", "before_ms", "single_x12_ms",
+                                       "mismatches_by_case", "bytes", "lanes_in_use",
+                                       "lane_positions", "shape") if k in r}
+        if "shape" in extra:
+            extra["shape"] = json.dumps(extra["shape"])
         if "engine_shape" in r:
-            say("k1_engine_shape", **r["engine_shape"])
-        say("kernel", name=r["name"], mismatches=r["mismatches"],
+            say("k1_engine_shape", entry=r["name"], **r["engine_shape"])
+        say("kernel", name=r["name"], kernel=r["kernel"], mismatches=r["mismatches"],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], **extra,
@@ -636,6 +846,9 @@ def phase_parity(torch, dev) -> None:
 
 
 def phase_slice(torch, dev) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from dragonboat_tpu_torch import bench_loop as bl
     from dragonboat_tpu_torch import kernels
     from dragonboat_tpu_torch.core import params as KP
@@ -644,6 +857,7 @@ def phase_slice(torch, dev) -> dict:
     kp = bl.sm_params(R, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    calls, uncount = _count_steps()
     kernels.reset_launches()
     t0 = time.perf_counter()
     state, box = bl.elect_all(kp, R, bl.make_cluster(kp, N, R, device=dev))
@@ -669,11 +883,22 @@ def phase_slice(torch, dev) -> dict:
         step_ms.append((time.perf_counter() - a) * 1e3)
     window_s = time.perf_counter() - w0
     committed = int((leader_commit(state) - c0).sum())
+    # the same step under torch.profiler: CUDA launches per step
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(PROFILE_STEPS):
+            state, box, kv_state, r, _ = bl.full_step_sm(
+                kp, R, kv, state, box, kv_state, True, True)
+            rej = rej + r
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    per_step = len(on_card) / PROFILE_STEPS
     state, box, kv_state, rej2 = bl.run_steps_sm(
         kp, R, kv, SETTLE_STEPS, True, False, state, box, kv_state)
     rejected = int(rej) + int(rej2)
     torch.cuda.synchronize()
     launches = dict(kernels.launches)
+    uncount()
     peak = torch.cuda.max_memory_allocated()
 
     # read-back on every replica of every group
@@ -707,15 +932,20 @@ def phase_slice(torch, dev) -> dict:
         "rejected_writes": rejected, "elect_s": elect_s,
         "peak_bytes": peak, "readback_rows": G,
         "groups_equal_applied": int(eq_groups.sum()),
-        "launches": launches,
+        "launches": launches, "steps": calls["step"], "routes": calls["route"],
+        "k1_per_step": _k1_calls_per_step(kp),
+        "profiled_steps": PROFILE_STEPS, "kernel_launches_per_step": per_step,
+        "kernel_launches_per_step_before": LAUNCHES_PER_STEP_BEFORE,
+        "fewer_than_before": LAUNCHES_PER_STEP_BEFORE - per_step,
+        "profiled_device_ms_per_step":
+            sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / PROFILE_STEPS,
     }
     say("slice", **{k: (json.dumps(v, separators=(",", ":"))
                         if isinstance(v, dict) else v) for k, v in stats.items()})
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
-    check(launches["kv_apply"] == WINDOW_STEPS + SETTLE_STEPS,
-          f"kv_apply launched {launches['kv_apply']} times in "
-          f"{WINDOW_STEPS + SETTLE_STEPS} device-SM steps")
+    sm_steps = WINDOW_STEPS + PROFILE_STEPS + SETTLE_STEPS
+    _check_path_launches("slice", launches, calls, kp, k3=sm_steps)
     return launches
 
 
@@ -766,38 +996,107 @@ def _sync_pass(torch, fn, steps: int) -> dict:
             "sync_sites": json.dumps(dict(sites), separators=(",", ":"))}
 
 
-def _check_path_launches(name: str, launches: dict, k3: int | None = None) -> None:
-    for k in ("quorum_match", "gather_lanes"):
-        check(launches[k] > 0, f"{name}: kernel {k} was not launched")
+def _count_calls(module, attr: str, counts: dict, thread: int | None = None):
+    """Count the calls of ``module.attr`` (a function its callers look up
+    there) in ``counts[attr]``, only those made in ``thread`` when one is
+    given; returns the function that takes the counter out."""
+    import threading
+
+    orig = getattr(module, attr)
+    counts[attr] = 0
+
+    def counted(*args, **kw):
+        if thread is None or threading.get_ident() == thread:
+            counts[attr] += 1
+        return orig(*args, **kw)
+
+    setattr(module, attr, counted)
+    return lambda: setattr(module, attr, orig)
+
+
+def _count_steps():
+    """Count the steps and routes the bench loops call (``bench_loop``'s
+    ``step`` and ``route``); returns the live counts and the function that
+    takes the counters out."""
+    from dragonboat_tpu_torch import bench_loop as bl
+
+    counts: dict = {}
+    undo = [_count_calls(bl, attr, counts) for attr in ("step", "route")]
+    return counts, lambda: [u() for u in undo]
+
+
+def _k1_calls_per_step(kp) -> int:
+    """K1 calls one step makes at ``kp``'s geometry, counted on a
+    one-shard step on the CPU in this thread (engines may be stepping in
+    others): the commit rule runs once per inbox slot whose family takes
+    responses or appends, and once after the append, whatever the data
+    (the eager step takes every branch under masks)."""
+    import threading
+
+    import numpy as np
+
+    from dragonboat_tpu_torch.core import kernel as K
+    from dragonboat_tpu_torch.core.kstate import empty_inbox, empty_input, init_state
+
+    P = kp.num_peers
+    ids = np.arange(1, P + 1, dtype=np.int32)
+    st = init_state(kp, P, ids, ids, device="cpu")
+    counts: dict = {}
+    uncount = _count_calls(K, "commit_quorum", counts, threading.get_ident())
+    try:
+        K.step(kp, st, empty_inbox(kp, P, "cpu"), empty_input(kp, P, "cpu"))
+    finally:
+        uncount()
+    return counts["commit_quorum"]
+
+
+def _check_path_launches(name: str, launches: dict, calls, kp,
+                         k3: int | None = None) -> int:
+    """Exactly _k1_calls_per_step(kp) K1 launches per step and
+    K2_PER_ROUTE K2 launches per route, one route per step, and K3 ``k3``
+    times (0 off the device-SM path); returns K1's launches per step."""
+    steps, routes = calls["step"], calls["route"]
+    per_step = _k1_calls_per_step(kp)
+    check(steps > 0 and routes == steps, f"{name}: {steps} steps, {routes} routes")
+    check(launches["quorum_match"] == per_step * steps,
+          f"{name}: {launches['quorum_match']} K1 launches in {steps} steps, "
+          f"not {per_step} a step")
+    check(launches["gather_lanes"] == K2_PER_ROUTE * routes,
+          f"{name}: {launches['gather_lanes']} K2 launches in {routes} routes, "
+          f"not {K2_PER_ROUTE} a route")
     if k3 is not None:
         check(launches["kv_apply"] == k3,
               f"{name}: kv_apply launched {launches['kv_apply']} times in {k3} steps")
     else:
         check(launches["kv_apply"] == 0, f"{name}: kv_apply launched off the device-SM path")
+    return per_step
 
 
 def _loop_taps():
     """Tap K1 and K2 where the step and the router call them, every
-    LOOP_TAP_EVERY-th call; returns the records and the untap function."""
+    LOOP_TAP_EVERY-th call, and count the loop's steps and routes; returns
+    the records, the counts and the untap function."""
     from dragonboat_tpu_torch.core import kernel as K
     from dragonboat_tpu_torch.core import router
 
-    k1, untap1 = _tap(K, "quorum_match", LOOP_TAP_EVERY)
-    k2, untap2 = _tap(router, "gather_lanes", LOOP_TAP_EVERY)
+    k1, untap1 = _tap(K, "commit_quorum", LOOP_TAP_EVERY)
+    k2, untap2 = _tap(router, "gather_lanes_multi", LOOP_TAP_EVERY)
+    calls, uncount = _count_steps()
 
     def untap():
         untap1()
         untap2()
+        uncount()
 
-    return (k1, k2), untap
+    return (k1, k2), calls, untap
 
 
 def _loop_held(torch, name: str, taps) -> dict:
     """K1 and K2 against their plain arms, bitwise, on the inputs the loop
     gave them (run after the loop's launch counts were read)."""
     k1, k2 = taps
-    out = {**_tapped(torch, k1["inputs"], "k1_held"),
-           **_tapped(torch, k2["inputs"], "k2_held", "gather_lanes")}
+    out = {**_tapped(torch, k1["inputs"], "k1_held", "commit_quorum"),
+           **_tapped(torch, k2["inputs"], "k2_held", "gather_lanes_multi")}
     for k in ("k1_held", "k2_held"):
         check(out[f"{k}_mismatches"] == 0,
               f"{name}: {k[:2].upper()} differs from its plain arm on the loop's inputs")
@@ -846,7 +1145,7 @@ def _loops_cluster(torch, dev):
         kp, R, SYNC_PASS_STEPS, WW, False, True, True, 0, state, box,
         stamp.clone(), hist.clone(), reads.clone()), SYNC_PASS_STEPS)
     kernels.reset_launches()
-    taps, untap = _loop_taps()
+    taps, calls, untap = _loop_taps()
     try:
         state, box, stamp, hist, reads = bl.run_steps_lat(
             kp, R, LAT_SETTLE, WW, False, True, True, 0, state, box, stamp, hist, reads)
@@ -872,7 +1171,7 @@ def _loops_cluster(torch, dev):
         launches=json.dumps(launches, separators=(",", ":")), **held, **syncs)
     check(int(dh.sum()) == released > 0,
           f"latency histogram holds {int(dh.sum())} releases, leaders released {released}")
-    _check_path_launches("loops_latency", launches)
+    _check_path_launches("loops_latency", launches, calls, kp)
 
     # B: the 9:1 ReadIndex mix, permits
     zero = torch.zeros((), dtype=torch.int32, device=dev)
@@ -880,7 +1179,7 @@ def _loops_cluster(torch, dev):
         kp, R, SYNC_PASS_STEPS, WW, now, state, box, zero), SYNC_PASS_STEPS)
     kernels.reset_launches()
     c0 = _leader_sum(torch, state.committed, lead)
-    taps, untap = _loop_taps()
+    taps, calls, untap = _loop_taps()
     try:
         (state, box, ctx), dt = _timed(torch, lambda: bl.run_steps_mixed(
             kp, R, MIXED_STEPS, WW, now, state, box, zero))
@@ -898,7 +1197,7 @@ def _loops_cluster(torch, dev):
         ops_per_s=(writes + min(ctx * rb, 9 * writes)) / dt,
         launches=json.dumps(launches, separators=(",", ":")), **held, **syncs)
     check(ctx > 0 and writes > 0, f"mixed loop: {ctx} ctxs, {writes} writes")
-    _check_path_launches("loops_mixed", launches)
+    _check_path_launches("loops_mixed", launches, calls, kp)
 
     # D: the membership wave with compaction under load; the host plays
     # the engine and releases the one-in-flight gate before each wave
@@ -915,7 +1214,7 @@ def _loops_cluster(torch, dev):
         return out
 
     kernels.reset_launches()
-    taps, untap = _loop_taps()
+    taps, calls, untap = _loop_taps()
     try:
         state, box, _acc, _idx = bl.cc_step(kp, R, state, box)
         state, box = bl.run_steps(kp, R, CC_PERIOD - 1, True, True, state, box)
@@ -939,7 +1238,7 @@ def _loops_cluster(torch, dev):
     check(cc_acc > 0, "no config change was accepted")
     check(cc_done == cc_acc, f"{cc_acc - cc_done} of {cc_acc} accepted CCs not committed")
     check(advance > 0, "the compaction floor did not advance under the wave")
-    _check_path_launches("loops_wave", launches)
+    _check_path_launches("loops_wave", launches, calls, kp)
 
 
 def _loops_served(torch, dev):
@@ -961,7 +1260,7 @@ def _loops_served(torch, dev):
         kp, R, kv, SYNC_PASS_STEPS, WW, 0, state, box,
         {k: v.clone() for k, v in kv_state.items()}, z(), z(), z()), SYNC_PASS_STEPS)
     kernels.reset_launches()
-    taps, untap = _loop_taps()
+    taps, calls, untap = _loop_taps()
     try:
         now = 0
         for n in (min(LOOP_CHUNK, MIXED_STEPS), MIXED_STEPS % LOOP_CHUNK):
@@ -988,7 +1287,7 @@ def _loops_served(torch, dev):
         **held, **syncs)
     check(rejects == 0, f"{rejects} committed writes rejected in the served mix")
     check(served > 0 and checksum != 0, f"served mix: {served} reads, checksum {checksum}")
-    _check_path_launches("loops_served", launches, k3=steps)
+    _check_path_launches("loops_served", launches, calls, kp, k3=steps)
 
 
 def _loops_storm(torch, dev):
@@ -1007,7 +1306,7 @@ def _loops_storm(torch, dev):
     syncs = _sync_pass(torch, lambda: bl.run_steps_storm(
         kp, R, SYNC_PASS_STEPS, STORM_DROP, STORM_SEED, state, box), SYNC_PASS_STEPS)
     kernels.reset_launches()
-    taps, untap = _loop_taps()
+    taps, calls, untap = _loop_taps()
     try:
         state, box = bl.run_steps(kp, R, STORM_TICKS, True, False, state, box)
         (state, box), storm_s = _timed(torch, lambda: bl.run_steps_storm(
@@ -1041,7 +1340,7 @@ def _loops_storm(torch, dev):
         launches=json.dumps(launches, separators=(",", ":")), **held, **syncs)
     check(recovered is not None,
           f"the storm did not recover to one leader per group in {RECOVERY_MAX} steps")
-    _check_path_launches("loops_storm", launches)
+    _check_path_launches("loops_storm", launches, calls, kp)
 
 
 def _loops_single(torch, dev):
@@ -1063,7 +1362,7 @@ def _loops_single(torch, dev):
             state, box = bl.run_steps(kp, R, SINGLE_CHUNK, True, True, state, box)
 
     kernels.reset_launches()
-    taps, untap = _loop_taps()
+    taps, calls, untap = _loop_taps()
     try:
         state, box = bl.run_steps(kp, R, SINGLE_CHUNK, True, True, state, box)
         c0 = _leader_sum(torch, state.committed, lead)
@@ -1078,7 +1377,7 @@ def _loops_single(torch, dev):
         writes_per_s=writes / dt, launches=json.dumps(launches, separators=(",", ":")),
         **held, **syncs)
     check(writes > 0, "the single shard committed nothing")
-    _check_path_launches("loops_single", launches)
+    _check_path_launches("loops_single", launches, calls, kp)
 
 
 def _loops_drive(torch, groups: int, dev, steps: int) -> dict:
@@ -1330,19 +1629,33 @@ def _nh_serve(hosts, shards, deadline_s=300.0) -> dict:
             "sync_read_sample": len(sample)}
 
 
+def _clone(x):
+    """A copy of a tensor or of a nest of lists and tuples of them."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(v) for v in x)
+    return x.clone()
+
+
+def _flat(x) -> list:
+    """The tensors of a nest of lists and tuples, in order."""
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _flat(v)]
+    return [x]
+
+
 def _tap(module, attr: str, every: int):
     """Route ``module.attr``, a kernel wrapper as a call site imported it
-    (K1's ``quorum_match`` in core/kernel and core/invariants, K2's
-    ``gather_lanes`` in core/router), through a tap that counts every call
-    and clones the inputs of every ``every``-th call (up to TAP_KEEP)
-    before it launches; returns the tap's record and the function that
-    takes the tap out."""
+    (K1's ``commit_quorum`` in core/kernel and ``quorum_match`` in
+    core/invariants, K2's ``gather_lanes_multi`` in core/router), through a
+    tap that counts every call and clones the inputs of every
+    ``every``-th call (up to TAP_KEEP) before it launches; returns the
+    tap's record and the function that takes the tap out."""
     orig, rec = getattr(module, attr), {"calls": 0, "inputs": []}
 
     def tap(*args):
         rec["calls"] += 1
         if (rec["calls"] - 1) % every == 0 and len(rec["inputs"]) < TAP_KEEP:
-            rec["inputs"].append(tuple(a.clone() for a in args))
+            rec["inputs"].append(_clone(args))
         return orig(*args)
 
     setattr(module, attr, tap)
@@ -1350,17 +1663,19 @@ def _tap(module, attr: str, every: int):
 
 
 def _tapped(torch, taps, key: str, kernel: str = "quorum_match") -> dict:
-    """A kernel against its plain arm on the inputs one call site gave it."""
+    """A kernel entry against its plain arm on the inputs one call site
+    gave it: every output equal in value, dtype and shape."""
     from dragonboat_tpu_torch.parallel import fabric_kernels as fk
 
     check(len(taps) > 0, f"no {kernel} call was tapped ({key})")
     fn, plain = getattr(fk, kernel), getattr(fk, kernel + "_plain")
-    shapes = sorted({tuple(args[0].shape) for args in taps})
+    shapes = sorted({tuple(_flat(args)[0].shape) for args in taps})
     mism = err = 0
     for args in taps:
-        got, ref = fn(*args), plain(*args)
-        mism += int((got != ref).sum())
-        err = max(err, max_abs_err(torch, got, ref))
+        for got, ref in zip(_flat(fn(*args)), _flat(plain(*args)), strict=True):
+            mism += int((got != ref).sum()) + (got.dtype != ref.dtype
+                                               or got.shape != ref.shape)
+            err = max(err, max_abs_err(torch, got, ref))
     return {f"{key}_calls": len(taps),
             f"{key}_shapes": json.dumps([list(x) for x in shapes]),
             f"{key}_mismatches": mism, f"{key}_max_abs_err": err}
@@ -1779,19 +2094,26 @@ def _nh_cell(torch, dev, tag, one_worker=False, reductions=True,
     from dragonboat_tpu_torch import kernels
     from dragonboat_tpu_torch.core import invariants as inv
     from dragonboat_tpu_torch.core import kernel as K
+    from dragonboat_tpu_torch.engine import kernel_engine
 
     t0 = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     ticks: dict = {}
-    step_tap, untap_step = _tap(K, "quorum_match", K1_TAP_EVERY)
+    step_tap, untap_step = _tap(K, "commit_quorum", K1_TAP_EVERY)
     probe_tap, untap_probe = _tap(inv, "quorum_match", 1)
+    # the engines' steps: each engine binds these two at construction
+    engine_steps: dict = {}
+    uncount = [_count_calls(kernel_engine, attr, engine_steps)
+               for attr in ("kernel_step", "kernel_step_donated")]
     untime = _time_ticks(ticks)
 
     def restore():
         untap_step()
         untap_probe()
+        for u in uncount:
+            u()
         untime()
 
     extra = {}
@@ -1804,14 +2126,16 @@ def _nh_cell(torch, dev, tag, one_worker=False, reductions=True,
                 st = _nh_serve(hosts, NH_SHARDS)
                 torch.cuda.synchronize()
                 launches = dict(kernels.launches)
-                calls = (step_tap["calls"], probe_tap["calls"])
+                calls = (step_tap["calls"], probe_tap["calls"],
+                         sum(engine_steps.values()))
                 tick_stats = _tick_stats(ticks)
                 peak = torch.cuda.max_memory_allocated()
             finally:
                 restore()
+            k1_per_step = _k1_calls_per_step(hosts[1].kernel_engine.kp)
             if full:
                 extra["k1"] = {
-                    **_tapped(torch, step_tap["inputs"], "k1_tapped"),
+                    **_tapped(torch, step_tap["inputs"], "k1_tapped", "commit_quorum"),
                     **_tapped(torch, probe_tap["inputs"], "k1_probe_tapped")}
                 extra["endpoints"] = _nh_endpoints(hosts, NH_SHARDS)
                 extra["reductions"] = _nh_reductions_vs_cpu(torch, hosts)
@@ -1826,6 +2150,7 @@ def _nh_cell(torch, dev, tag, one_worker=False, reductions=True,
             "admit_s": admit_s, **st, **tick_stats,
             "k1_launches": launches["quorum_match"],
             "k1_step_calls": calls[0], "k1_probe_calls": calls[1],
+            "engine_steps": calls[2], "k1_per_engine_step": k1_per_step,
             "launches": json.dumps(launches, separators=(",", ":")),
             "max_memory_allocated": peak, "extra": extra,
             "seconds": time.perf_counter() - t0}
@@ -1850,6 +2175,9 @@ def phase_nodehost(torch, dev, smi: str) -> int:
     check(st["k1_probe_calls"] > 0, "K1 was not launched by the invariant probe")
     check(st["k1_step_calls"] + st["k1_probe_calls"] == st["k1_launches"],
           "K1's launches are not the step's and the probe's calls")
+    check(st["k1_step_calls"] == st["k1_per_engine_step"] * st["engine_steps"],
+          f"{st['k1_step_calls']} K1 launches by the engines' {st['engine_steps']} "
+          f"steps, not {st['k1_per_engine_step']} a step")
     for key in ("k1_tapped_mismatches", "k1_probe_tapped_mismatches"):
         check(extra["k1"][key] == 0, f"K1 disagrees with its plain arm ({key})")
     check(prof["acked"] == prof["writes"], "profiled writes not all acknowledged")
@@ -1956,12 +2284,14 @@ def main() -> int:
     launches = phase_slice(torch, dev)
     phase_loops(torch, dev)
     phase_nodehost(torch, dev, device["nvidia_smi"])
-    for r in rows:
-        r["launches"] = launches[r["name"]]
     say("total", seconds=time.perf_counter() - t0)
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    # one row per kernel: the numbers of the entry the main path launches
+    keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [
+        {"name": r["kernel"], "entry": r["name"], "launches": launches[r["kernel"]],
+         **{k: r[k] for k in keys}}
+        for r in rows if r["name"] in MAIN_PATH_ENTRIES]}))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))

@@ -22,8 +22,9 @@ Integer hazards handled here: ``argmax`` on bool masks goes through int32
 bits (``params.splitmix32_t``).
 
 The commit rule's order statistic goes through K1
-(``parallel/fabric_kernels.quorum_match``), which launches the CUDA kernel
-on the card.
+(``parallel/fabric_kernels.commit_quorum``), which takes the voting mask
+and the quorum from the peer kinds and launches one CUDA kernel on the
+card.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from dragonboat_tpu_torch.core.kstate import (
     StepInput,
     StepOutput,
 )
-from dragonboat_tpu_torch.parallel.fabric_kernels import quorum_match
+from dragonboat_tpu_torch.parallel.fabric_kernels import commit_quorum
 
 I32 = torch.int32
 INT_MAX = 2**31 - 1
@@ -277,8 +278,9 @@ def _self_removed(s: ShardState):
 
 
 def _sorted_match_quorum_index(kp: P.KernelParams, s: ShardState):
-    """The q-th largest match among voting members (K1)."""
-    return quorum_match(s.match, _voting_mask(s), _quorum(s))
+    """The q-th largest match among voting members (K1, its voting mask
+    and quorum taken from ``s.kind`` in the same launch)."""
+    return commit_quorum(s.match, s.kind)
 
 
 def _try_commit(kp, s: ShardState) -> ShardState:

@@ -14,9 +14,10 @@ Inbox slot layout per target, per peer q of the R-1 remote peers:
 Requires ``inbox_cap >= 5 * (R - 1)``.
 
 The response-lane pick goes through K2
-(``parallel/fabric_kernels.gather_lanes``), which launches the CUDA kernel
-on the card.  The per-source ``take`` keeps both of the reference's
-lowerings (gather, or one-hot with ``kp.onehot_reads``).
+(``parallel/fabric_kernels.gather_lanes_multi``): all six response fields
+by both lanes in one call, one CUDA launch a route on the card.  The
+per-source ``take`` keeps both of the reference's lowerings (gather, or
+one-hot with ``kp.onehot_reads``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from dragonboat_tpu_torch import raftpb as pb
 from dragonboat_tpu_torch.core import params as KP
 from dragonboat_tpu_torch.core.kernel import onehot_select, step
 from dragonboat_tpu_torch.core.kstate import Inbox, ShardState, StepInput, StepOutput
-from dragonboat_tpu_torch.parallel.fabric_kernels import gather_lanes
+from dragonboat_tpu_torch.parallel.fabric_kernels import gather_lanes_multi
 
 MT = pb.MessageType
 I32 = torch.int32
@@ -97,16 +98,10 @@ def route(kp: KP.KernelParams, replicas: int, out: StepOutput) -> Inbox:
     second = torch.where(to_me & (lane_iota != first[..., None]),
                          lane_iota, K).min(dim=-1).values     # [N, Rt, Rs]
 
-    def pick(src_field, lane):
-        """src_field [N, Rs, K], lane [N, Rt, Rs] -> [N, Rt, Rs]: K2 over
-        vals [(n, s), K] and idx [(n, s), t]; a lane of K reads 0."""
-        vals = src_field.reshape(N * R, K).to(I32).contiguous()
-        idx = lane.transpose(1, 2).reshape(N * R, R).contiguous()
-        got = gather_lanes(vals, idx).reshape(N, R, R).transpose(1, 2)
-        return got.to(src_field.dtype)
-
-    picked = [{f: pick(grp(getattr(out, f)), lane) for f in _RESP_FIELDS}
-              for lane in (first, second)]
+    # picked[lane][f][n, t, s] = field f of source row (n, s) at that
+    # lane; a lane of K reads 0 (K2, one launch for all twelve picks)
+    picked = [dict(zip(_RESP_FIELDS, per_lane)) for per_lane in gather_lanes_multi(
+        [getattr(out, f).contiguous() for f in _RESP_FIELDS], (first, second))]
     resp_valid = (first < K, second < K)
 
     # per-peer lanes: source s's peer slot t is the lane to target rid t+1

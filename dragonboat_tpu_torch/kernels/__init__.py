@@ -57,7 +57,12 @@ _C_PTR = ctypes.c_void_p
 # the stream are c_void_p, every size a c_int; each returns cudaError_t
 _SIGNATURES = {
     "dbt_quorum_match": (_C_PTR,) * 4 + (_C_INT,) * 2 + (_C_PTR,),
+    "dbt_commit_quorum": (_C_PTR,) * 3 + (_C_INT,) * 4 + (_C_PTR,),
     "dbt_gather_lanes": (_C_PTR,) * 3 + (_C_INT,) * 3 + (_C_PTR,),
+    # fields, field_bytes, n_fields, lanes, n_lanes, outs (host arrays),
+    # A, B, C, K, stream
+    "dbt_gather_lanes_multi": (_C_PTR, _C_PTR, _C_INT, _C_PTR, _C_INT, _C_PTR)
+    + (_C_INT,) * 4 + (_C_PTR,),
     "dbt_kv_apply": (_C_PTR,) * 8 + (_C_INT,) * 5 + (_C_PTR,),
 }
 

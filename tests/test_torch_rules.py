@@ -88,6 +88,14 @@ def test_wrappers_take_plain_arm_on_cpu_without_counting():
     vals = torch.as_tensor(rng.integers(-9, 9, (6, 10)).astype(np.int32))
     idx = torch.as_tensor(rng.integers(0, 11, (6, 3)).astype(np.int32))
     assert torch.equal(fk.gather_lanes(vals, idx), fk.gather_lanes_plain(vals, idx))
+    kind = torch.as_tensor(rng.integers(0, 4, (6, 3)).astype(np.int32))
+    assert torch.equal(fk.commit_quorum(match, kind), fk.commit_quorum_plain(match, kind))
+    fields = [vals, vals > 0]
+    lanes = [torch.as_tensor(rng.integers(0, 11, (2, 3, 3)).astype(np.int32))
+             for _ in range(2)]
+    for got, ref in zip(fk.gather_lanes_multi(fields, lanes),
+                        fk.gather_lanes_multi_plain(fields, lanes)):
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
     kv = DeviceKV(table_cap=16, probe_depth=4)
     cmds = torch.as_tensor(rng.integers(0, 20, (6, 5, 2)).astype(np.int32))
     valid = torch.ones((6, 5), dtype=torch.bool)
