@@ -93,8 +93,38 @@ Phases, each printing one line (any failure exits non-zero):
    the card and on the CPU, every engine state leaf, every reduction
    snapshot and every replica's applied index and contents equal after
    every round;
-8. the ``kernels`` JSON line, one row per kernel with the numbers of the
-   entry the main path launches (launches: phase 5's), then the final
+8. mesh: the mesh serving path (``parallel/ici.py``, ``MeshDispatch``,
+   ``MeshEngine``) at ``bench.py``'s ``run_mesh_pipeline_ab`` shape, 1024
+   groups x 3 replicas on a (g=1, r=3) mesh with every position on the
+   card: elect, then 30 self-driving ``ici_serve_step``s with an open cut
+   mask on the card and, from the same state, on the CPU, every state,
+   box and output leaf equal after every step; exactly 16 K1 launches (a
+   CPU step's count at this geometry) and 1 K2 launch per serve step; K1
+   and K2 against their plain arms on inputs tapped from those steps
+   ``[mesh_parity]``.  The depth-0 against depth-1 A/B of
+   ``run_mesh_pipeline_ab`` (non-donating against donating entry and
+   their staging protocols, windows interleaved, median of 3 per arm;
+   40 micro-steps a window, cut from bench.py's 120 for the time limit):
+   micro-step ms and committed writes/s on leader rows ``[mesh_ab]``.
+   The NodeHost mesh cell: three hosts share ``MeshSpec(g_size=1,
+   replicas=3, n_local=1024)`` with ``Config(mesh_resident=True)`` over
+   the chan transport and the reference's default ExpertConfig; 1024
+   shards x 3 replicas, 4 writes per shard, every write acknowledged and
+   the last read back from all 3,072 replicas; the fabric census's p50
+   commit host hops 0.0 and all six link classes ``resident``; K1 (step
+   and invariant probe) and K2 launches counted exactly over the cell and
+   tapped against their plain arms; then one link of shard 1 cut with
+   ``set_link_hub_served`` (both directions ``hub``, a write still
+   commits and reaches the cut follower) and healed (``resident`` again,
+   another write commits) ``[mesh_nodehost]``; the same cell at
+   kernel_pipeline_depth 1 with 64 shards (overlapped steps > 0)
+   ``[mesh_depth1]``; phase 7's manual-drive script on a one-group mesh,
+   card against CPU, every engine state leaf, reduction snapshot and
+   replica equal after every round ``[mesh_nodehost_parity]``; K1's and
+   K2's entries timed on the cell's inputs ``[mesh_kernel]``;
+9. the ``kernels`` JSON line, one row per kernel with the numbers of the
+   entry the main path launches (``path`` "slice": launches phase 5's;
+   ``path`` "mesh": launches phase 8's NodeHost cell's), then the final
    ``{"ok": true, ...}`` line.
 
 Every number the run takes is printed on these lines.  Needs no network
@@ -103,7 +133,7 @@ only phases 1, 2 and the 1024 x 3 NodeHost cell, under the reference's
 EngineConfig and under a single step worker, in turn, ROUNDS times each.
 ``--compare-reductions [ROUNDS]`` runs only phases 1, 2 and the same cell
 with the three reductions on (the default ExpertConfig) and off, in turn,
-ROUNDS times each.
+ROUNDS times each.  ``--mesh`` runs only phases 1, 2 and 8.
 """
 
 from __future__ import annotations
@@ -157,6 +187,12 @@ K2_PER_ROUTE = 1
 # at 8192 x 3 before K1 and K2 took their batched entries
 # (profile_slice.py on an H100; PERF.md section 5)
 PROFILE_STEPS, LAUNCHES_PER_STEP_BEFORE = 6, 10807
+# phase 8, the mesh serving path at bench.py's run_mesh_pipeline_ab shape:
+# 1024 groups x 3 replicas on a (g=1, r=3) mesh; serve steps card against
+# CPU; the A/B's window cut from bench.py's 120 micro-steps to 40 for the
+# script's time limit
+MESH_GROUPS, MESH_PARITY_STEPS, MESH_AB_STEPS = 1024, 30, 40
+MESH_ELECT_MAX, MESH_SETTLE, MESH_DEPTH1_SHARDS = 400, 6, 64
 # the entry of each kernel that the main path launches
 MAIN_PATH_ENTRIES = ("commit_quorum", "gather_lanes_multi", "kv_apply")
 # the ExpertConfig switches that turn the three decimated reductions off
@@ -1495,15 +1531,18 @@ def _kv_sm(shard_id, replica_id):
 
 
 def _nh_hosts(tag, shards, dev, depth=0, auto_run=True, one_worker=False,
-              reductions=True, metrics=False, **expert):
+              reductions=True, metrics=False, mesh=False, **expert):
     """Three NodeHosts over the chan transport with ``shards``
     device-resident shards x 3 replicas; the reference's ExpertConfig
     (the reductions on unless ``reductions`` is False) and EngineConfig
-    (unless ``one_worker`` asks for a single step worker)."""
+    (unless ``one_worker`` asks for a single step worker).  ``mesh``
+    places the shards on one shared MeshEngine instead, a (g=1, r=3)
+    mesh of ``shards`` groups (``MeshSpec``, ``mesh_resident``)."""
     from dragonboat_tpu_torch.config import (
         Config,
         EngineConfig,
         ExpertConfig,
+        MeshSpec,
         NodeHostConfig,
     )
     from dragonboat_tpu_torch.nodehost import NodeHost
@@ -1515,6 +1554,9 @@ def _nh_hosts(tag, shards, dev, depth=0, auto_run=True, one_worker=False,
             expert["engine"] = EngineConfig(exec_shards=1, apply_shards=1)
         if not reductions:
             expert.update(REDUCTIONS_OFF)
+        if mesh:
+            expert["mesh"] = MeshSpec(name=tag, g_size=1, replicas=3,
+                                      n_local=shards)
         ex = ExpertConfig(kernel_pipeline_depth=depth, **expert)
         hosts[r] = NodeHost(NodeHostConfig(raft_address=addr,
                                            rtt_millisecond=10, expert=ex,
@@ -1524,8 +1566,18 @@ def _nh_hosts(tag, shards, dev, depth=0, auto_run=True, one_worker=False,
         for r, nh in hosts.items():
             nh.start_replica(addrs, False, _kv_sm, Config(
                 shard_id=sid, replica_id=r, election_rtt=10, heartbeat_rtt=1,
-                device_resident=True))
+                device_resident=not mesh, mesh_resident=mesh))
     return hosts
+
+
+def _nh_engines(hosts) -> list:
+    """The hosts' device engines, each once (mesh hosts share one)."""
+    out = []
+    for nh in hosts.values():
+        eng = nh.kernel_engine or nh.mesh_engine
+        if all(eng is not e for e in out):
+            out.append(eng)
+    return out
 
 
 def _nh_leaders(hosts, shards) -> dict:
@@ -1555,7 +1607,7 @@ def _nh_serve(hosts, shards, deadline_s=300.0) -> dict:
         time.sleep(0.2)
         leaders = _nh_leaders(hosts, shards)
     elect_s = time.perf_counter() - t0
-    timers = [nh.kernel_engine._step_timer.samples for nh in hosts.values()]
+    timers = [eng._step_timer.samples for eng in _nh_engines(hosts)]
     check(all(len(t) < t.maxlen for t in timers), "step timer ring wrapped")
     marks = [len(t) for t in timers]
 
@@ -2040,10 +2092,11 @@ def _reduction_snapshots(eng) -> tuple:
             eng._inv_seq) + digests
 
 
-def _nh_parity_run(dev, tag) -> list:
+def _nh_parity_run(dev, tag, mesh=False) -> list:
     """One manual-drive script (auto_run=False, one shard, the reference
-    engine tests' geometry) on ``dev``: per round, every host's engine
-    state and every replica's (applied index, contents)."""
+    engine tests' geometry; ``mesh``: on a one-group mesh) on ``dev``:
+    per round, every host's engine state and every replica's (applied
+    index, contents)."""
     import itertools
 
     from dragonboat_tpu_torch import convert
@@ -2053,9 +2106,9 @@ def _nh_parity_run(dev, tag) -> list:
     # run stages lands in the device state
     req.PendingProposal._seq = itertools.count(1)
     req.PendingReadIndex._ctx = itertools.count(1)
-    hosts = _nh_hosts(tag, 1, dev, auto_run=False, kernel_log_cap=256,
-                      kernel_capacity=8, kernel_apply_batch=16,
-                      kernel_compaction_overhead=16)
+    hosts = _nh_hosts(tag, 1, dev, auto_run=False, mesh=mesh,
+                      kernel_log_cap=256, kernel_capacity=8,
+                      kernel_apply_batch=16, kernel_compaction_overhead=16)
     rng = np.random.default_rng(SEED)
     trace = []
     try:
@@ -2074,11 +2127,12 @@ def _nh_parity_run(dev, tag) -> list:
                 nh.tick_all()
             for nh in hosts.values():
                 nh.run_once()
-            trace.append([(convert.to_numpy(nh.kernel_engine.state),
+            trace.append([(convert.to_numpy(eng.state),
                            nh.nodes[1].sm.get_last_applied(),
                            dict(nh.nodes[1].sm.sm.kv),
-                           _reduction_snapshots(nh.kernel_engine))
-                          for nh in hosts.values()])
+                           _reduction_snapshots(eng))
+                          for nh in hosts.values()
+                          for eng in [nh.kernel_engine or nh.mesh_engine]])
     finally:
         _nh_close(hosts)
     return trace
@@ -2156,9 +2210,35 @@ def _nh_cell(torch, dev, tag, one_worker=False, reductions=True,
             "seconds": time.perf_counter() - t0}
 
 
-def phase_nodehost(torch, dev, smi: str) -> int:
+def _nh_parity(torch, dev, tag, mesh=False) -> dict:
+    """The manual-drive script on the CPU and on the card: every engine
+    state leaf, every reduction snapshot and every replica's applied
+    index and contents equal after every round."""
     from dragonboat_tpu_torch import convert
 
+    t2 = time.perf_counter()
+    cpu = _nh_parity_run(torch.device("cpu"), f"{tag}pc", mesh)
+    card = _nh_parity_run(dev, f"{tag}pg", mesh)
+    for i, (a, b) in enumerate(zip(cpu, card)):
+        for r, ((sa, ap_a, kv_a, ra), (sb, ap_b, kv_b, rb)) in enumerate(zip(a, b)):
+            bad = convert.diff_leaves(sa, sb)
+            check(not bad, f"card != CPU at round {i}, host {r + 1}: {bad}")
+            check((ap_a, kv_a) == (ap_b, kv_b),
+                  f"card != CPU SM at round {i}, host {r + 1}")
+            check(ra[:4] == rb[:4], f"card != CPU reductions at round {i}, host {r + 1}")
+            for da, db in zip(ra[4:], rb[4:]):
+                check((da is None) == (db is None)
+                      and (da is None or not convert.diff_leaves(da, db)),
+                      f"card != CPU digests at round {i}, host {r + 1}")
+    applied = max(x[1] for x in card[-1])
+    check(applied > 0, "parity script applied nothing")
+    probes = card[-1][0][3][3]
+    check(probes > 0, "parity script took no reduction tick")
+    return {"rounds": NH_PARITY_ROUNDS, "card_vs_cpu": "equal", "applied": applied,
+            "probe_ticks": probes, "seconds": time.perf_counter() - t2}
+
+
+def phase_nodehost(torch, dev, smi: str) -> int:
     tag = f"smk{time.monotonic_ns()}"
     st = _nh_cell(torch, dev, tag, full=True)
     extra = st.pop("extra")
@@ -2204,27 +2284,439 @@ def phase_nodehost(torch, dev, smi: str) -> int:
     check(all(d is not None and d["violations_seen"] == 0 for d in d1_inv),
           f"depth 1: invariant probe {d1_inv}")
 
-    t2 = time.perf_counter()
-    cpu = _nh_parity_run(torch.device("cpu"), f"{tag}pc")
-    card = _nh_parity_run(dev, f"{tag}pg")
-    for i, (a, b) in enumerate(zip(cpu, card)):
-        for r, ((sa, ap_a, kv_a, ra), (sb, ap_b, kv_b, rb)) in enumerate(zip(a, b)):
-            bad = convert.diff_leaves(sa, sb)
-            check(not bad, f"card != CPU at round {i}, host {r + 1}: {bad}")
-            check((ap_a, kv_a) == (ap_b, kv_b),
-                  f"card != CPU SM at round {i}, host {r + 1}")
-            check(ra[:4] == rb[:4], f"card != CPU reductions at round {i}, host {r + 1}")
-            for da, db in zip(ra[4:], rb[4:]):
-                check((da is None) == (db is None)
-                      and (da is None or not convert.diff_leaves(da, db)),
-                      f"card != CPU digests at round {i}, host {r + 1}")
-    applied = max(x[1] for x in card[-1])
-    check(applied > 0, "parity script applied nothing")
-    probes = card[-1][0][3][3]
-    check(probes > 0, "parity script took no reduction tick")
-    say("nodehost_parity", rounds=NH_PARITY_ROUNDS, card_vs_cpu="equal",
-        applied=applied, probe_ticks=probes, seconds=time.perf_counter() - t2)
+    say("nodehost_parity", **_nh_parity(torch, dev, tag))
     return k1
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the mesh serving path (parallel/ici.py, MeshDispatch, MeshEngine)
+# ---------------------------------------------------------------------------
+
+
+def _mesh_cluster(torch, dev):
+    """The reference bench's mesh shape on ``dev``: bench_params(3),
+    MESH_GROUPS groups on a (g=1, r=3) mesh, every position on ``dev``."""
+    from dragonboat_tpu_torch import bench_loop as bl
+    from dragonboat_tpu_torch.parallel import ici
+
+    kp = bl.bench_params(REPLICAS, dev)
+    cl, st, box = ici.make_ici_cluster(kp, 1, REPLICAS, MESH_GROUPS, device=dev)
+    cut = torch.zeros((cl.total_rows, kp.num_peers), dtype=torch.bool, device=dev)
+    return kp, cl, st, box, cut
+
+
+def _mesh_leaders(torch, st) -> int:
+    """Groups with a leader; block-major rows: replica ir of group n is
+    row ir * MESH_GROUPS + n (g = 1)."""
+    from dragonboat_tpu_torch.core import params as KP
+
+    lead = (st.role == KP.LEADER).reshape(REPLICAS, MESH_GROUPS)
+    return int(lead.any(dim=0).sum())
+
+
+def _mesh_elect(torch, kp, cl, st, box, cut):
+    """Serve steps without proposals until every group has a leader,
+    then MESH_SETTLE more; returns state, box and the steps taken."""
+    from dragonboat_tpu_torch.parallel import ici
+
+    n = 0
+    while _mesh_leaders(torch, st) < MESH_GROUPS:
+        check(n < MESH_ELECT_MAX, f"mesh: {_mesh_leaders(torch, st)} of "
+              f"{MESH_GROUPS} groups elected in {n} steps")
+        st, box, _ = ici.ici_serve_step(
+            cl, st, box, ici.self_driving_input(kp, st, propose=False), cut)
+        n += 1
+    for _ in range(MESH_SETTLE):
+        st, box, _ = ici.ici_serve_step(
+            cl, st, box, ici.self_driving_input(kp, st, propose=False), cut)
+    return st, box, n + MESH_SETTLE
+
+
+def _to_cpu(x):
+    return type(x)(*[None if v is None else v.cpu() for v in x])
+
+
+def _clone_tree(x):
+    return type(x)(*[None if v is None else v.clone() for v in x])
+
+
+def _mesh_parity(torch, dev) -> dict:
+    """(a) and (d): elect on the card, then MESH_PARITY_STEPS
+    self-driving serve steps with an open mask on the card (launches
+    counted, K1 and K2 tapped) and from the same state on the CPU;
+    every state, box and output leaf equal after every step; the taps
+    against the plain arms."""
+    from dragonboat_tpu_torch import kernels
+    from dragonboat_tpu_torch.core import kernel as K
+    from dragonboat_tpu_torch.core import router
+    from dragonboat_tpu_torch.parallel import ici
+
+    t0 = time.perf_counter()
+    kp, cl, st, box, cut = _mesh_cluster(torch, dev)
+    st, box, elect_steps = _mesh_elect(torch, kp, cl, st, box, cut)
+    torch.cuda.synchronize()
+    elect_s = time.perf_counter() - t0
+    st_c, box_c = _to_cpu(st), _to_cpu(box)
+    kp_c, cl_c, _, _, _ = _mesh_cluster(torch, torch.device("cpu"))
+    cut_c = cut.cpu()
+    card = []
+    k1, untap1 = _tap(K, "commit_quorum", LOOP_TAP_EVERY)
+    k2, untap2 = _tap(router, "gather_lanes_multi", 2)
+    counts: dict = {}
+    uncount = _count_calls(ici, "_exchange", counts)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    try:
+        for _ in range(MESH_PARITY_STEPS):
+            st, box, out = ici.ici_serve_step(
+                cl, st, box, ici.self_driving_input(kp, st), cut)
+            card.append(_leaves("", (st, box, out)))
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+    finally:
+        untap1()
+        untap2()
+        uncount()
+    for i, ref in enumerate(card):
+        st_c, box_c, out_c = ici.ici_serve_step(
+            cl_c, st_c, box_c, ici.self_driving_input(kp_c, st_c), cut_c)
+        bad = _leaf_diff(torch, ref, _leaves("", (st_c, box_c, out_c)))
+        check(not bad, f"mesh: card != CPU at serve step {i}: {bad[:6]}")
+    per_step = _k1_calls_per_step(kp)
+    steps = MESH_PARITY_STEPS
+    check(counts["_exchange"] == steps, f"mesh: {counts['_exchange']} exchanges")
+    check(launches["quorum_match"] == per_step * steps,
+          f"mesh: {launches['quorum_match']} K1 launches in {steps} serve "
+          f"steps, not {per_step} a step")
+    check(launches["gather_lanes"] == K2_PER_ROUTE * steps,
+          f"mesh: {launches['gather_lanes']} K2 launches in {steps} serve steps")
+    check(launches["kv_apply"] == 0, "mesh: kv_apply launched off its path")
+    held = {**_tapped(torch, k1["inputs"], "k1_held", "commit_quorum"),
+            **_tapped(torch, k2["inputs"], "k2_held", "gather_lanes_multi")}
+    for k in ("k1_held", "k2_held"):
+        check(held[f"{k}_mismatches"] == 0,
+              f"mesh: {k[:2].upper()} differs from its plain arm on the serve steps")
+    committed = int(st.committed.max())
+    check(committed > 0, "mesh parity run committed nothing")
+    return {"groups": MESH_GROUPS, "replicas": REPLICAS, "rows": cl.total_rows,
+            "elect_steps": elect_steps, "elect_s": elect_s,
+            "serve_steps": steps, "card_vs_cpu": "equal",
+            "k1_per_step": per_step,
+            "launches": json.dumps(launches, separators=(",", ":")),
+            **held, "seconds": time.perf_counter() - t0,
+            "_state": (kp, cl, st, box, cut)}
+
+
+def _mesh_ab(torch, kp, cl, st0, box0, cut) -> dict:
+    """(b) bench.py's run_mesh_pipeline_ab on the port: the depth-0
+    protocol (stage from the current state, blocking fetch, non-donating
+    entry) against the depth-1 protocol (stage from one-step-stale host
+    copies, pull the next copies right before dispatch, donating entry),
+    MESH_AB_STEPS micro-steps a window, windows interleaved, median of 3
+    per arm after one warm window each."""
+    from dragonboat_tpu_torch.core import params as KP
+    from dragonboat_tpu_torch.core.kstate import StepInput
+    from dragonboat_tpu_torch.parallel import ici
+
+    B, dev = kp.proposal_cap, cl.device
+    lead_rows = st0.role == KP.LEADER
+
+    def host_input(role_h, proc_h):
+        G = role_h.shape[0]
+        z = lambda: np.zeros((G,), np.int32)  # noqa: E731
+        lead = role_h == KP.LEADER
+        inp = StepInput(
+            prop_valid=np.broadcast_to(lead[:, None], (G, B)).copy(),
+            prop_cc=np.zeros((G, B), bool), ri_valid=np.zeros((G,), bool),
+            ri_low=z(), ri_high=z(), transfer_to=z(),
+            tick=np.ones((G,), bool), quiesced=np.zeros((G,), bool),
+            applied=proc_h)
+        return cl.shard(inp)
+
+    def committed(st):
+        return int(torch.where(lead_rows, st.committed.to(torch.int64), 0).sum())
+
+    arms = {a: {"state": _clone_tree(st0), "box": _clone_tree(box0)}
+            for a in ("serial", "pipelined")}
+
+    def window(arm):
+        a = arms[arm]
+        c0 = committed(a["state"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if arm == "serial":
+            for _ in range(MESH_AB_STEPS):
+                inp = host_input(a["state"].role.cpu().numpy(),
+                                 a["state"].processed.cpu().numpy())
+                a["state"], a["box"], _ = ici.serve_step(
+                    kp, cl, a["state"], a["box"], inp, cut)
+        else:
+            role_h = a["state"].role.cpu().numpy()
+            proc_h = a["state"].processed.cpu().numpy()
+            for _ in range(MESH_AB_STEPS):
+                inp = host_input(role_h, proc_h)
+                role_h = a["state"].role.cpu().numpy()
+                proc_h = a["state"].processed.cpu().numpy()
+                a["state"], a["box"], _ = ici.serve_step_donated(
+                    kp, cl, a["state"], a["box"], inp, cut)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        w = committed(a["state"]) - c0
+        return {"wall_s": dt, "micro_step_ms": dt / MESH_AB_STEPS * 1e3,
+                "writes": w, "writes_per_s": w / dt}
+
+    for arm in arms:
+        window(arm)
+    wins = {"serial": [], "pipelined": []}
+    for _ in range(3):
+        for arm in ("serial", "pipelined"):
+            wins[arm].append(window(arm))
+    med = {arm: sorted(ws, key=lambda r: r["micro_step_ms"])[1]
+           for arm, ws in wins.items()}
+    for arm in arms:
+        check(med[arm]["writes"] > 0, f"mesh A/B: the {arm} arm committed nothing")
+    return {"micro_steps_per_window": MESH_AB_STEPS,
+            "micro_steps_of_bench": f"{MESH_AB_STEPS}/120",
+            "serial_micro_step_ms": med["serial"]["micro_step_ms"],
+            "serial_writes_per_s": med["serial"]["writes_per_s"],
+            "pipelined_micro_step_ms": med["pipelined"]["micro_step_ms"],
+            "pipelined_writes_per_s": med["pipelined"]["writes_per_s"],
+            "windows": json.dumps({a: [round(w["micro_step_ms"], 3) for w in ws]
+                                   for a, ws in wins.items()})}
+
+
+def _mesh_link_cut(hosts) -> dict:
+    """Cut one link of shard 1 with set_link_hub_served: both directions
+    turn hub, a write still commits and reaches the cut follower; after
+    healing both turn resident again and another write commits."""
+    from dragonboat_tpu_torch import fabric
+    from dragonboat_tpu_torch.request import RequestDroppedError, RequestTimeoutError
+
+    def write(cmd, deadline=60.0):
+        end = time.perf_counter() + deadline
+        while True:
+            lid = _nh_leaders(hosts, 1).get(1)
+            try:
+                if lid:
+                    nh = hosts[lid]
+                    return nh.sync_propose(nh.get_noop_session(1), cmd, timeout_s=10)
+            except (RequestDroppedError, RequestTimeoutError):
+                pass
+            check(time.perf_counter() < end, f"mesh cut: {cmd!r} never committed")
+            time.sleep(0.1)
+
+    def classes(a, b):
+        lc = fabric.METER.snapshot()["link_classes"]
+        return lc.get(f"{a}->{b}"), lc.get(f"{b}->{a}")
+
+    t0 = time.perf_counter()
+    lid = _nh_leaders(hosts, 1)[1]
+    frid = next(r for r in hosts if r != lid)
+    eng = hosts[lid].mesh_engine
+    lnode = eng.by_shard[(1, lid)]
+    book = eng._link_class_book(lnode)
+    la, fa = book[lid], book[frid]
+    eng.set_link_hub_served(lnode, frid, True)
+    cut_classes = classes(la, fa)
+    check(cut_classes == ("hub", "hub"), f"mesh cut: link classes {cut_classes}")
+    write(b"cut=1")
+    end = time.perf_counter() + 60
+    while hosts[frid].stale_read(1, "cut") != "1":
+        check(time.perf_counter() < end, "mesh cut: the cut follower never applied")
+        time.sleep(0.05)
+    eng.set_link_hub_served(lnode, frid, False)
+    healed = classes(la, fa)
+    check(healed == ("resident", "resident"), f"mesh heal: link classes {healed}")
+    write(b"heal=1")
+    return {"cut_link": f"{la}<->{fa}", "cut_classes": "hub,hub",
+            "healed_classes": "resident,resident",
+            "cut_seconds": time.perf_counter() - t0}
+
+
+def _mesh_cell(torch, dev, tag) -> dict:
+    """(c) The NodeHost mesh cell: three hosts share MeshSpec(g_size=1,
+    replicas=3, n_local=MESH_GROUPS), mesh_resident shards, the
+    reference's default ExpertConfig; elect, NH_WRITES writes per shard,
+    every write acknowledged, the last one read back from every replica;
+    the census and the link classes; launches counted over the cell and
+    K1/K2 tapped; then the link cut."""
+    from dragonboat_tpu_torch import fabric, kernels
+    from dragonboat_tpu_torch.core import invariants as inv
+    from dragonboat_tpu_torch.core import kernel as K
+    from dragonboat_tpu_torch.core import router
+    from dragonboat_tpu_torch.parallel import ici
+
+    t0 = time.perf_counter()
+    # the fabric meter is process-wide: phase 7's hub commits must not
+    # count in this cell's hop census
+    fabric.METER.reset()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    step_tap, untap_step = _tap(K, "commit_quorum", K1_TAP_EVERY)
+    probe_tap, untap_probe = _tap(inv, "quorum_match", 1)
+    route_tap, untap_route = _tap(router, "gather_lanes_multi", 7)
+    counts: dict = {}
+    uncount = _count_calls(ici, "_exchange", counts)
+
+    def restore():
+        untap_step()
+        untap_probe()
+        untap_route()
+        uncount()
+
+    try:
+        hosts = _nh_hosts(tag, MESH_GROUPS, dev, mesh=True)
+        admit_s = time.perf_counter() - t0
+        try:
+            try:
+                st = _nh_serve(hosts, MESH_GROUPS)
+                torch.cuda.synchronize()
+                launches = dict(kernels.launches)
+                calls = (step_tap["calls"], probe_tap["calls"],
+                         route_tap["calls"], counts["_exchange"])
+            finally:
+                restore()
+            eng = hosts[1].mesh_engine
+            check(all(nh.mesh_engine is eng for nh in hosts.values()),
+                  "mesh cell: the hosts do not share one engine")
+            check(all(nh.kernel_engine is None for nh in hosts.values()),
+                  "mesh cell: a kernel engine was built")
+            fab = hosts[1].info()["fabric"]
+            hops = fab["census"]["p50_commit_host_hops"]
+            lc = fab["link_classes"]
+            k1_per_step = _k1_calls_per_step(eng.kp)
+            inv_seen = eng.last_invariants
+            cut = _mesh_link_cut(hosts)
+        finally:
+            c0 = time.perf_counter()
+            _nh_close(hosts)
+            close_s = time.perf_counter() - c0
+    finally:
+        restore()
+    check(st["acked"] == MESH_GROUPS * NH_WRITES, "mesh cell: not every write acknowledged")
+    check(hops == 0.0, f"mesh cell: p50 commit host hops {hops}")
+    check(len(lc) == 6 and set(lc.values()) == {fabric.LINK_CLASS_RESIDENT},
+          f"mesh cell: link classes {lc}")
+    check(inv_seen is not None and inv_seen["violations_seen"] == 0,
+          f"mesh cell: invariant probe {inv_seen}")
+    step_calls, probe_calls, route_calls, exchanges = calls
+    check(exchanges > 0 and route_calls == exchanges,
+          f"mesh cell: {route_calls} routes in {exchanges} exchanges")
+    check(step_calls == k1_per_step * exchanges,
+          f"mesh cell: {step_calls} K1 step launches in {exchanges} serve steps, "
+          f"not {k1_per_step} a step")
+    check(probe_calls > 0, "mesh cell: the invariant probe never launched K1")
+    check(launches["quorum_match"] == step_calls + probe_calls,
+          "mesh cell: K1's launches are not the step's and the probe's")
+    check(launches["gather_lanes"] == K2_PER_ROUTE * exchanges,
+          f"mesh cell: {launches['gather_lanes']} K2 launches in {exchanges} serve steps")
+    check(launches["kv_apply"] == 0, "mesh cell: kv_apply launched off its path")
+    held = {**_tapped(torch, step_tap["inputs"], "k1_tapped", "commit_quorum"),
+            **_tapped(torch, probe_tap["inputs"], "k1_probe_tapped"),
+            **_tapped(torch, route_tap["inputs"], "k2_tapped", "gather_lanes_multi")}
+    for key in ("k1_tapped", "k1_probe_tapped", "k2_tapped"):
+        check(held[f"{key}_mismatches"] == 0, f"mesh cell: {key} differs from its plain arm")
+    return {"shards": MESH_GROUPS, "replicas": 3, "hosts": 3, "admit_s": admit_s,
+            **st, "p50_commit_host_hops": hops, "link_classes": len(lc),
+            "serve_steps": exchanges, "k1_per_serve_step": k1_per_step,
+            "k1_step_launches": step_calls, "k1_probe_launches": probe_calls,
+            "launches": json.dumps(launches, separators=(",", ":")),
+            **held, **cut, "close_s": close_s, "seconds": time.perf_counter() - t0,
+            "_taps": (step_tap["inputs"], route_tap["inputs"]),
+            "_launches": launches}
+
+
+def _mesh_depth1(dev, tag) -> dict:
+    """The mesh cell at kernel_pipeline_depth 1 with MESH_DEPTH1_SHARDS
+    shards: every write acknowledged and read back, overlapped steps > 0,
+    no invariant violation."""
+    t0 = time.perf_counter()
+    hosts = _nh_hosts(tag, MESH_DEPTH1_SHARDS, dev, depth=1, mesh=True)
+    try:
+        st = _nh_serve(hosts, MESH_DEPTH1_SHARDS)
+        eng = hosts[1].mesh_engine
+        overlapped = eng.events.metrics.snapshot().get(
+            "engine.pipeline.overlapped", 0)
+        inv = eng.last_invariants
+    finally:
+        _nh_close(hosts)
+    check(st["acked"] == MESH_DEPTH1_SHARDS * NH_WRITES,
+          "mesh depth 1: not every write acknowledged")
+    check(eng.pipeline_depth == 1 and overlapped > 0, "mesh depth 1: no step overlapped")
+    check(inv is not None and inv["violations_seen"] == 0,
+          f"mesh depth 1: invariant probe {inv}")
+    return {"shards": MESH_DEPTH1_SHARDS, **st, "overlapped": overlapped,
+            "violations_seen": inv["violations_seen"],
+            "seconds": time.perf_counter() - t0}
+
+
+def _mesh_rows(torch, k1_inputs, k2_inputs, launches) -> list[dict]:
+    """The kernels line's rows for the mesh cell: K1's commit_quorum and
+    K2's gather_lanes_multi on the inputs the cell gave them (the last
+    tap of each), timed against their plain arms, with the cell's
+    launches."""
+    from dragonboat_tpu_torch.parallel import fabric_kernels as fk
+
+    match, kind = k1_inputs[-1]
+    G, P = match.shape
+    got, ref = fk.commit_quorum(match, kind), fk.commit_quorum_plain(match, kind)
+    b_ms, b_by = bound(_commit_bytes(G, P), _commit_ops(G, P))
+    k1 = {"name": "commit_quorum", "kernel": "quorum_match", "route": "cuda",
+          "source": "dragonboat_tpu_torch/csrc/quorum_match.cu",
+          "replaces": "dragonboat_tpu/parallel/fabric_pallas.py:177",
+          "path": "mesh", "shape": f"match [{G}, {P}] i32, kind [{G}, {P}] i32",
+          "launches": launches["quorum_match"],
+          "max_abs_err": max_abs_err(torch, got, ref),
+          "bound_ms": b_ms, "bound_by": b_by,
+          **_times(torch, lambda: fk.commit_quorum(match, kind),
+                   lambda: fk.commit_quorum_plain(match, kind), None)}
+    fields, lanes = k2_inputs[-1]
+    got = _flat(fk.gather_lanes_multi(fields, lanes))
+    ref = _flat(fk.gather_lanes_multi_plain(fields, lanes))
+    nbytes = sum(t.numel() * t.element_size() for t in (*fields, *lanes, *got))
+    N, Rt, Rs = lanes[0].shape
+    b_ms, b_by = bound(nbytes, N * Rt * Rs * len(lanes) * (2 + 2 * len(fields)))
+    k2 = {"name": "gather_lanes_multi", "kernel": "gather_lanes", "route": "cuda",
+          "source": "dragonboat_tpu_torch/csrc/gather_lanes.cu",
+          "replaces": "dragonboat_tpu/parallel/fabric_pallas.py:101",
+          "path": "mesh",
+          "shape": f"{len(fields)} fields [{fields[0].shape[0]}, {fields[0].shape[1]}], "
+                   f"{len(lanes)} lanes [{N}, {Rt}, {Rs}] i32",
+          "launches": launches["gather_lanes"],
+          "max_abs_err": max(max_abs_err(torch, a, b) for a, b in zip(got, ref)),
+          "bound_ms": b_ms, "bound_by": b_by,
+          **_times(torch, lambda: fk.gather_lanes_multi(fields, lanes),
+                   lambda: fk.gather_lanes_multi_plain(fields, lanes), None)}
+    for r in (k1, k2):
+        check(r["max_abs_err"] == 0, f"mesh: {r['name']} differs from its plain arm")
+    return [k1, k2]
+
+
+def phase_mesh(torch, dev, smi: str) -> list[dict]:
+    """Phase 8: the mesh serving path at the reference bench's mesh shape,
+    1024 groups x 3 replicas on a (g=1, r=3) mesh, every position on the
+    card.  Returns the kernels line's mesh rows."""
+    t0 = time.perf_counter()
+    par = _mesh_parity(torch, dev)
+    kp, cl, st, box, cut = par.pop("_state")
+    say("mesh_parity", **par, card=json.dumps(smi))
+    ab = _mesh_ab(torch, kp, cl, st, box, cut)
+    say("mesh_ab", groups=MESH_GROUPS, replicas=REPLICAS, mesh="(g=1, r=3)",
+        **ab, card=json.dumps(smi))
+    del st, box
+    cell = _mesh_cell(torch, dev, f"msh{time.monotonic_ns()}")
+    taps, launches = cell.pop("_taps"), cell.pop("_launches")
+    say("mesh_nodehost", **cell, card=json.dumps(smi))
+    d1 = _mesh_depth1(dev, f"msh{time.monotonic_ns()}d1")
+    say("mesh_depth1", **d1)
+    say("mesh_nodehost_parity", mesh="(g=1, r=3), one group",
+        **_nh_parity(torch, dev, f"msh{time.monotonic_ns()}", mesh=True))
+    rows = _mesh_rows(torch, *taps, launches)
+    for r in rows:
+        say("mesh_kernel", **{k: v for k, v in r.items() if k != "timing"},
+            timing=json.dumps(r["timing"]))
+    say("mesh_total", seconds=time.perf_counter() - t0)
+    return rows
 
 
 def compare_workers(torch, dev, rounds: int) -> int:
@@ -2279,19 +2771,26 @@ def main() -> int:
         return compare_workers(torch, dev, int((sys.argv[2:] or ["2"])[0]))
     if sys.argv[1:2] == ["--compare-reductions"]:
         return compare_reductions(torch, dev, int((sys.argv[2:] or ["2"])[0]))
+    if sys.argv[1:2] == ["--mesh"]:
+        phase_mesh(torch, dev, device["nvidia_smi"])
+        return 0
     rows = phase_kernels(torch, dev)
     phase_parity(torch, dev)
     launches = phase_slice(torch, dev)
     phase_loops(torch, dev)
     phase_nodehost(torch, dev, device["nvidia_smi"])
+    mesh_rows = phase_mesh(torch, dev, device["nvidia_smi"])
     say("total", seconds=time.perf_counter() - t0)
     # one row per kernel: the numbers of the entry the main path launches
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
-        {"name": r["kernel"], "entry": r["name"], "launches": launches[r["kernel"]],
-         **{k: r[k] for k in keys}}
-        for r in rows if r["name"] in MAIN_PATH_ENTRIES]}))
+        {"name": r["kernel"], "entry": r["name"], "path": "slice",
+         "launches": launches[r["kernel"]], **{k: r[k] for k in keys}}
+        for r in rows if r["name"] in MAIN_PATH_ENTRIES] + [
+        {"name": r["kernel"], "entry": r["name"], "path": "mesh",
+         "launches": r["launches"], **{k: r[k] for k in keys}}
+        for r in mesh_rows]}))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))

@@ -1,30 +1,42 @@
-"""Unified engine dispatch: ONE step loop, one backend so far.
+"""Unified engine dispatch: ONE step loop, two backends.
 
 The port of the reference's ``engine/dispatch.py``.  ``KernelEngine.step_all``
 is the only step loop; a dispatch backend contributes only ``dispatch()``
-and its entries.  The port has the single-device backend,
-``SerialDispatch``, bound to the port's ``core/kernel.step`` and
-``step_donated`` (eager PyTorch: the step's commit rule launches K1 on the
-card).  The reference's second backend, ``MeshDispatch`` (the shard_map
-serving path of ``parallel/ici.py``), is ROADMAP.md Queue 1 item 11.
+and its entries.  ``SerialDispatch`` is the single-device backend, bound to
+the port's ``core/kernel.step`` and ``step_donated`` (eager PyTorch: the
+step's commit rule launches K1 on the card).  ``MeshDispatch`` is the mesh
+serving backend over ``parallel/ici.py``'s ``serve_step`` and
+``serve_step_donated``: the inbox stays on the device between steps, the
+exchange inside the step routes it (one K2 launch a step on the card), and
+a per-link cut mask sends cut links over the host hub.
 
 The module-level tuples and dicts below are the reference's machine-read
-contract, copied as they stand (with the package prefix rewritten): which
-methods only the step-loop owner may define, the sanctioned subclass
-seams, the feature knobs the step loop must read, every dispatch entry
-(the ``serve_step*`` rows describe the mesh backend still to come), the
-sanctioned device->host sync sites, and the per-entry transfer ledger.
-In the port the crossing sites count under their ``capacity.METER`` tags
-as in the reference.
+contract, copied as they stand (with the package prefix rewritten, and the
+mesh entries naming the port's functions): which methods only the
+step-loop owner may define, the sanctioned subclass seams, the feature
+knobs the step loop must read, every dispatch entry, the sanctioned
+device->host sync sites, and the per-entry transfer ledger.  In the port
+the crossing sites count under their ``capacity.METER`` tags as in the
+reference.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from dragonboat_tpu_torch import capacity as _capacity
 from dragonboat_tpu_torch.core import params as KP
 from dragonboat_tpu_torch.core.kernel import (
+    FLAG_CLASSES,
     step as kernel_step,
     step_donated as kernel_step_donated,
+)
+from dragonboat_tpu_torch.core.kstate import Inbox, empty_inbox
+from dragonboat_tpu_torch.parallel.ici import (
+    IciCluster,
+    serve_step,
+    serve_step_donated,
 )
 
 #: the one class allowed to define step-loop internals
@@ -95,15 +107,15 @@ DISPATCH_ENTRIES = {
         "waiver": "",
     },
     "serve_step": {
-        "module": "dragonboat_tpu/parallel/ici.py",
-        "function": "jit_serve_step",
+        "module": "dragonboat_tpu_torch/parallel/ici.py",
+        "function": "serve_step",
         "donated": False,
         "waiver": "depth-0 mesh oracle: the differential reference "
                   "entry must leave its inputs readable",
     },
     "serve_step_donated": {
-        "module": "dragonboat_tpu/parallel/ici.py",
-        "function": "jit_serve_step_donated",
+        "module": "dragonboat_tpu_torch/parallel/ici.py",
+        "function": "serve_step_donated",
         "donated": True,
         "waiver": "",
     },
@@ -347,3 +359,120 @@ class SerialDispatch:
 
     def resident_classes(self) -> tuple:
         return ()
+
+
+#: FLAG_CLASSES columns that carry inter-replica messages — the classes
+#: whose routed traffic keeps the mesh draining (need_snapshot/wit_snap/
+#: rtr are host-escalation signals, not inbox content)
+_MSG_FLAG_COLS = [FLAG_CLASSES.index(c)
+                  for c in ("resp", "rep", "hb", "vote", "timeout_now")]
+
+
+class MeshDispatch:
+    """Mesh backend (``parallel/ici.py``): messages ride the exchange
+    inside the step, the inbox stays on the cluster's device between
+    steps, and a per-link cut mask decides which links the mesh serves —
+    traffic for cut links (and off-mesh peers) rides the host hub and is
+    merged back into the carried inbox at its route() slot."""
+
+    def __init__(self, cluster: IciCluster) -> None:
+        self.cluster = cluster
+        total = cluster.total_rows
+        # the inbox carried between steps on the device (messages ride
+        # the mesh, not the host queues)
+        self.box = empty_inbox(cluster.kp, total, cluster.device)
+        # drain-pending, derived host-side from the [G, C] activity
+        # flags the step loop already fetches every step
+        self._pending_msgs = False
+        # per-link cut mask [rows, num_peers]: cut[row, p] severs the
+        # mesh link between the row and its group peer rid p+1 (mesh
+        # addressing pins peer slot p to rid p+1).  Device copy cached
+        # until the mask changes.
+        self.cut = np.zeros((total, cluster.kp.num_peers), bool)
+        self._cut_dev = None
+        self.entries = {
+            "serve_step": _capacity.TRACKER.wrap("serve_step", serve_step),
+            "serve_step_donated": _capacity.TRACKER.wrap(
+                "serve_step_donated", serve_step_donated),
+        }
+
+    def dispatch(self, state, inbox, inp, donate: bool):
+        """Advance the mesh: host-staged inputs, device-routed messages.
+        Kernel-family traffic between mesh rows rides the exchange inside
+        the step; the host inbox builder is consulted ONLY for hub-
+        fallback deliveries (cut links, off-mesh senders), staged
+        slot-exact by _InboxBuilder and merged into the carried inbox
+        before the entry runs.  ``donate=True`` routes through the
+        donating entry (no-touch contract on state, the carried inbox and
+        the staged input); the cached cut mask is never donated."""
+        cl = self.cluster
+        if inbox is not None and inbox.mtype.any():
+            staged = inbox.to_device()
+            if self.box.ent_val is not None and staged.ent_val is None:
+                staged = staged._replace(
+                    ent_val=torch.zeros_like(self.box.ent_val))
+            live = staged.mtype != 0
+
+            def merge(s, b):
+                if s is None:
+                    return None
+                m = live.reshape(tuple(live.shape) + (1,) * (s.ndim - 2))
+                return torch.where(m, s, b)
+
+            self.box = Inbox(*[merge(s, b) for s, b in zip(staged, self.box)])
+        staged_inp = inp.to_device()
+        if self._cut_dev is None:
+            with _capacity.METER.sanctioned("cut_up"):
+                self._cut_dev = torch.tensor(self.cut, device=cl.device)
+        entry = self.entries["serve_step_donated" if donate
+                             else "serve_step"]
+        state, box, out = entry(
+            cl.kp, cl, state, self.box, staged_inp, self._cut_dev)
+        self.box = box
+        return state, out
+
+    def pending(self) -> bool:
+        return self._pending_msgs
+
+    def note_output_flags(self, flags) -> None:
+        """Derive drain-pending from the retired step's [G, C] activity
+        flags (already host-side — no extra crossing): any messaging
+        class set means the exchange routed traffic into the carried
+        inbox (or the hub is about to carry it), so the next step has
+        work.  Conservative under cut links — flags are computed from
+        the unmasked output, so a fully-cut row costs at most one idle
+        step — and never an undercount: the carried inbox only ever
+        holds routed copies of flagged output lanes."""
+        self._pending_msgs = bool(flags[:, _MSG_FLAG_COLS].any())
+
+    def inbox_from(self, inbox_buf):
+        # the mesh inbox stays on the device between steps; no host copy
+        return self.box.from_
+
+    def shard(self, tree):
+        """Place a [G]-leading tree on the cluster's device (digests and
+        the like live where the state they derive from lives)."""
+        return self.cluster.shard(tree)
+
+    def set_cut(self, lane: int, cut: bool) -> None:
+        """Flip one row's WHOLE partition mask (every link of the row)
+        and invalidate the cached device copy (next dispatch re-stages
+        it).  This is the chaos PartitionNode surface: the row neither
+        sends nor receives on the mesh."""
+        self.cut[lane, :] = cut
+        self._cut_dev = None
+
+    def set_link_cut(self, lane: int, peer_rid: int, cut: bool) -> None:
+        """Flip ONE directed half-link: row ``lane`` stops exchanging
+        with group peer rid ``peer_rid`` over the mesh.  Callers must
+        cut links symmetrically (both endpoints) — hub fallback relies
+        on the peer's sender-side mask to emit its half over the host."""
+        self.cut[lane, peer_rid - 1] = cut
+        self._cut_dev = None
+
+    def resident_trees(self) -> tuple:
+        # the carried inbox stays on the device between steps here
+        return (self.box,)
+
+    def resident_classes(self) -> tuple:
+        return ("Inbox",)

@@ -1013,8 +1013,11 @@ class KernelEngine:
     def _fleet_inbox_from(self) -> torch.Tensor:
         """[G, K] sender ids feeding the inbox-occupancy histogram: the
         backend picks the host-staged builder (uploaded to the engine's
-        device here) or its carried box."""
-        return _upload(self._dispatch.inbox_from(self._inbox_buf), self.device)
+        device here) or its carried box (already on the device)."""
+        src = self._dispatch.inbox_from(self._inbox_buf)
+        if isinstance(src, torch.Tensor):
+            return src
+        return _upload(src, self.device)
 
     def _collect_fleet_stats(self) -> None:
         """Decimated fleet telemetry: one reduction over the resident

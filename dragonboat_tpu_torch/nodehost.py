@@ -12,16 +12,18 @@ The loopback engine steps nodes synchronously on an engine thread (the
 reference's partitioned worker pools collapse to one executor here); the
 port's ``KernelEngine`` runs device-resident shards as rows of one
 ``[G]`` state on the host's ``device`` — the CUDA card unless the caller
-names the CPU (``NodeHost(..., device="cpu")``).
+names the CPU (``NodeHost(..., device="cpu")``).  Mesh-resident shards
+(``Config.mesh_resident`` with ``ExpertConfig.mesh``) attach to the port's
+process-wide ``MeshEngine``, whose mesh positions all live on that same
+device (``parallel/ici.py``).
 
 Off this port's path, each raising at construction with the ROADMAP.md
-item that brings it: mesh-resident shards (``Config.mesh_resident`` with
-``ExpertConfig.mesh``, Queue 1 item 11), gossip addressing
-(``address_by_node_host_id``, item 14) and the JAX compile cache
-(``ExpertConfig.compile_cache``: eager PyTorch compiles nothing, item
-13).  The default ``ExpertConfig`` runs as is: the engine's decimated
-device reductions feed ``shard_info``'s device row and the opt-in
-``enable_metrics`` endpoint (``/metrics``, ``/healthz``, ``/debug/*``).
+item that brings it: gossip addressing (``address_by_node_host_id``, item
+14) and the JAX compile cache (``ExpertConfig.compile_cache``: eager
+PyTorch compiles nothing, item 13).  The default ``ExpertConfig`` runs as
+is: the engine's decimated device reductions feed ``shard_info``'s device
+row and the opt-in ``enable_metrics`` endpoint (``/metrics``,
+``/healthz``, ``/debug/*``).
 """
 
 from __future__ import annotations
@@ -88,9 +90,6 @@ def _refuse_off_path(nhconfig: NodeHostConfig) -> None:
     """Raise for the NodeHost settings the port does not carry yet, each
     naming the ROADMAP.md item that brings it (never skipped silently)."""
     ex = nhconfig.expert
-    if ex.mesh is not None:
-        raise ValueError("ExpertConfig.mesh: the mesh engine is not ported "
-                         "yet (ROADMAP.md Queue 1 item 11)")
     if nhconfig.address_by_node_host_id:
         raise ValueError("address_by_node_host_id: gossip addressing is not "
                          "ported yet (ROADMAP.md Queue 1 item 14)")
@@ -270,9 +269,8 @@ class NodeHost:
         # the batched device engine, created on the first device-resident
         # shard (engine/kernel_engine.py)
         self.kernel_engine = None
-        # the shared multi-chip engine of the reference: never attached
-        # in the port (mesh-resident shards are ROADMAP.md Queue 1 item
-        # 11); kept so the engine loops read like the reference's
+        # the shared mesh engine, attached on the first mesh-resident
+        # shard (engine/mesh_engine.py)
         self.mesh_engine = None
         # elastic fleet controller (control.py): consumes each decimated
         # health observation on the engine ticker thread (_control_round)
@@ -490,6 +488,18 @@ class NodeHost:
 
     # -- lifecycle ------------------------------------------------------
 
+    def _detach_mesh(self, nodes) -> None:
+        """Take this host's replicas off the shared mesh engine and drop
+        this host's reference to it (the last host's detach closes it)."""
+        if self.mesh_engine is None:
+            return
+        from dragonboat_tpu_torch.engine.mesh_engine import detach_mesh_engine
+
+        self.mesh_engine.remove_replicas(
+            [n for n in nodes if getattr(n, "engine", None) is self.mesh_engine])
+        detach_mesh_engine(self.mesh_engine)
+        self.mesh_engine = None
+
     def close(self) -> None:
         self.events.node_host_shutting_down()
         with self.mu:
@@ -497,6 +507,7 @@ class NodeHost:
             nodes = list(self.nodes.values())
             self.nodes.clear()
             self._nodes_dirty = True
+        self._detach_mesh(nodes)
         self._work.set()
         for ev in self._worker_events:
             ev.set()
@@ -563,6 +574,7 @@ class NodeHost:
             self._nodes_dirty = True
             specs = sorted(self._replica_specs.items())
             self._replica_specs.clear()
+        self._detach_mesh(nodes)
         self.kernel_engine = None
         self._work.set()
         for ev in self._worker_events:
@@ -616,6 +628,7 @@ class NodeHost:
             self.nodes.clear()
             self._nodes_dirty = True
             self._replica_specs.clear()
+        self._detach_mesh(nodes)
         self._work.set()
         for ev in self._worker_events:
             ev.set()
@@ -647,7 +660,10 @@ class NodeHost:
         """StartReplica (nodehost.go:499) for a regular/concurrent SM
         factory ``create_sm(shard_id, replica_id)``."""
         cfg.validate()
-        if cfg.device_resident and not cfg.is_witness:
+        mesh = (cfg.mesh_resident and not cfg.is_witness
+                and self.config.expert.mesh is not None)
+        device = cfg.device_resident and not cfg.is_witness and not mesh
+        if device:
             # build the engine BEFORE registering the shard: a refused
             # engine configuration raises here, with nothing half-started
             self._ensure_kernel_engine()
@@ -677,9 +693,6 @@ class NodeHost:
                 else os.path.join(tempfile.gettempdir(), "dragonboat_tpu",
                                   self.id, "snapshots")
             )
-            mesh = (cfg.mesh_resident and not cfg.is_witness
-                    and self.config.expert.mesh is not None)
-            device = cfg.device_resident and not cfg.is_witness and not mesh
             node_cls = Node
             if device or mesh:
                 from dragonboat_tpu_torch.engine.kernel_engine import KernelNode
@@ -903,11 +916,38 @@ class NodeHost:
             self._fallback_host_side(node, kind, e)
 
     def _inject_mesh_shard(self, node, members: dict[int, str]) -> None:
-        """Mesh-resident placement (the reference's multi-chip serving
-        path) is not ported yet; start_replica refuses such shards."""
-        raise ValueError(
-            "mesh-resident shards are not ported yet (ROADMAP.md Queue 1 "
-            "item 11)")
+        """Place this replica onto the process-wide mesh engine (the mesh
+        serving path, engine/mesh_engine.py): its peers are the other
+        rows of its group, possibly attached by other NodeHosts sharing
+        the MeshSpec."""
+        from dragonboat_tpu_torch.engine.mesh_engine import attach_mesh_engine
+
+        # persist the bootstrap state FIRST: every fallback below rebuilds
+        # the shard host-side from the LogDB
+        init = self._build_lane_init(node, members)
+        spec = self.config.expert.mesh
+        if self.mesh_engine is None:
+            try:
+                kp = self._kernel_params(min_inbox=5 * (spec.replicas - 1))
+                self.mesh_engine = attach_mesh_engine(
+                    kp, spec, events=self.events,
+                    fleet_stats_every=self.config.expert.fleet_stats_every,
+                    pipeline_depth=self.config.expert.kernel_pipeline_depth,
+                    health_top_k=self.config.expert.health_top_k,
+                    health_thresholds=self._health_thresholds(),
+                    invariant_probe=self.config.expert.invariant_probe,
+                    capacity_watermark_pct=(
+                        self.config.expert.capacity_watermark_pct),
+                    capacity_budget_bytes=(
+                        self.config.expert.capacity_device_budget_bytes),
+                    device=self.device)
+            except Exception as e:
+                # geometry, kernel params or device mismatch with an
+                # already-attached engine
+                self._fallback_host_side(node, "mesh-resident", e)
+                return
+        self._inject_into_engine(self.mesh_engine, node, init,
+                                 "mesh-resident")
 
     def _on_kernel_evict(self, knode, carry: list[pb.Message]) -> None:
         """needs_host slow path: rebuild the shard as a host-resident

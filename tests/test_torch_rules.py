@@ -2,7 +2,9 @@
 
 - ``dragonboat_tpu_torch`` imports neither JAX nor the JAX package;
 - with no CUDA device, an entry point given no device raises instead of
-  running on the CPU;
+  running on the CPU (the mesh path's too);
+- a mesh-resident shard attaches the port's MeshEngine on the CPU when the
+  host asks for the CPU;
 - every kernel wrapper takes its plain arm for CPU tensors and leaves its
   launch count at 0, and refuses tensors it cannot take;
 - a kernel build with no ``nvcc`` raises instead of falling back.
@@ -191,6 +193,55 @@ def test_nodehost_path_imports_no_jax_and_no_reference_package():
             assert leaders(scrape(nh)) == 1
         finally:
             nh.close()
+        # the mesh path: three hosts on one MeshEngine, then the serve step
+        from dragonboat_tpu_torch.config import ExpertConfig, MeshSpec
+        from dragonboat_tpu_torch.core import params as KP
+        from dragonboat_tpu_torch.parallel import ici
+        tag = f"rules-mesh{time.monotonic_ns()}"
+        spec = MeshSpec(name=tag, g_size=1, replicas=3, n_local=2)
+        addrs = {r: f"{tag}-{r}" for r in (1, 2, 3)}
+        hosts = {r: NodeHost(NodeHostConfig(
+            raft_address=addrs[r], expert=ExpertConfig(mesh=spec)),
+            auto_run=False, device="cpu") for r in addrs}
+        try:
+            for r, h in hosts.items():
+                h.start_replica(addrs, False, KVStateMachine, Config(
+                    shard_id=1, replica_id=r, election_rtt=10,
+                    heartbeat_rtt=1, mesh_resident=True))
+            eng = hosts[1].mesh_engine
+            assert eng is not None and eng is hosts[3].mesh_engine
+            lead = 0
+            for _ in range(40):
+                for h in hosts.values():
+                    h.tick_all(); h.tick_all()
+                for h in hosts.values():
+                    h.run_once()
+                ids = {h.get_leader_id(1) for h in hosts.values()}
+                if len(ids) == 1 and ids.copy().pop()[1]:
+                    lead = ids.pop()[0]
+                    break
+            assert lead, "no mesh leader"
+            rs = hosts[lead].propose(hosts[lead].get_noop_session(1), b"m=3",
+                                     timeout_s=5)
+            for _ in range(12):
+                for h in hosts.values():
+                    h.tick_all(); h.tick_all()
+                for h in hosts.values():
+                    h.run_once()
+            assert rs.result.completed(), rs.result
+            assert all(h.stale_read(1, "m") == "3" for h in hosts.values())
+        finally:
+            close_all(hosts)
+        kp = KP.KernelParams(num_peers=3, log_cap=64, inbox_cap=10,
+                             msg_entries=4, proposal_cap=4, readindex_cap=4,
+                             apply_batch=16, compaction_overhead=16)
+        cl, st, box = ici.make_ici_cluster(kp, 2, 3, 4, device="cpu")
+        import torch
+        cut = torch.zeros((cl.total_rows, 3), dtype=torch.bool)
+        for _ in range(4):
+            st, box, _ = ici.ici_serve_step(cl, st, box,
+                                            ici.self_driving_input(kp, st), cut)
+        st, box = ici.ici_run_steps(kp, cl, 2, True, st, box)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "dragonboat_tpu" or m.startswith("dragonboat_tpu."))
@@ -214,12 +265,75 @@ def test_nodehost_without_device_raises_when_no_gpu():
         NodeHost(NodeHostConfig(raft_address="rules-nodev-1"), auto_run=False)
 
 
-def test_nodehost_refuses_off_path_settings():
+def test_mesh_nodehost_without_device_raises_when_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
     from dragonboat_tpu_torch.config import ExpertConfig, MeshSpec, NodeHostConfig
+    from dragonboat_tpu_torch.engine.mesh_engine import attach_mesh_engine
+    from dragonboat_tpu_torch.nodehost import NodeHost
+    from dragonboat_tpu_torch.parallel import ici
+
+    spec = MeshSpec(name="rules-nodev-mesh", g_size=1, replicas=3, n_local=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NodeHost(NodeHostConfig(raft_address="rules-nodev-2",
+                                expert=ExpertConfig(mesh=spec)),
+                 auto_run=False)
+    kp = bl.bench_params(3, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        attach_mesh_engine(kp, spec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ici.make_ici_cluster(kp, 1, 3, 2)
+
+
+def test_mesh_engine_attaches_on_cpu():
+    """A mesh-resident shard on a host that names the CPU attaches the
+    port's MeshEngine there (the reference's mesh raised before this
+    slice); a second attach under the same name with another geometry,
+    other kernel params or another device raises."""
+    import dataclasses
+
+    from dragonboat_tpu_torch.config import (
+        Config, ExpertConfig, MeshSpec, NodeHostConfig)
+    from dragonboat_tpu_torch.engine import mesh_engine as me
+    from dragonboat_tpu_torch.nodehost import NodeHost
+
+    from test_torch_nodehost import KVStateMachine
+
+    name = f"rules-mesh-cpu{os.getpid()}"
+    spec = MeshSpec(name=name, g_size=1, replicas=3, n_local=2)
+    addrs = {r: f"{name}-{r}" for r in (1, 2, 3)}
+    nh = NodeHost(NodeHostConfig(raft_address=addrs[1],
+                                 expert=ExpertConfig(mesh=spec)),
+                  auto_run=False, device="cpu")
+    try:
+        nh.start_replica(addrs, False, KVStateMachine, Config(
+            shard_id=1, replica_id=1, election_rtt=10, heartbeat_rtt=1,
+            mesh_resident=True))
+        eng = nh.mesh_engine
+        assert isinstance(eng, me.MeshEngine)
+        assert eng.device == torch.device("cpu")
+        assert nh.nodes[1].peer is None and nh.nodes[1].engine is eng
+        assert eng.by_shard[(1, 1)].lane == eng._row(0, 1)
+        assert eng._dispatch.box.mtype.device.type == "cpu"
+        kp = eng.kp
+        for args, what in (
+                ((kp, dataclasses.replace(spec, n_local=4)), "geometry"),
+                ((dataclasses.replace(kp, log_cap=2 * kp.log_cap), spec),
+                 "kernel params"),
+                ((kp, spec, "meta"), "device")):
+            kw = {"device": args[2]} if len(args) > 2 else {"device": "cpu"}
+            with pytest.raises(RuntimeError, match=f"{what} mismatch"):
+                me.attach_mesh_engine(args[0], args[1], **kw)
+    finally:
+        nh.close()
+    assert name not in me._REGISTRY
+
+
+def test_nodehost_refuses_off_path_settings():
+    from dragonboat_tpu_torch.config import ExpertConfig, NodeHostConfig
     from dragonboat_tpu_torch.nodehost import NodeHost
 
     cases = (
-        (dict(expert=ExpertConfig(mesh=MeshSpec())), "item 11"),
         (dict(expert=ExpertConfig(compile_cache=True)), "item 13"),
     )
     for i, (kw, item) in enumerate(cases):
