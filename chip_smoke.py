@@ -122,10 +122,38 @@ Phases, each printing one line (any failure exits non-zero):
    card against CPU, every engine state leaf, reduction snapshot and
    replica equal after every round ``[mesh_nodehost_parity]``; K1's and
    K2's entries timed on the cell's inputs ``[mesh_kernel]``;
-9. the ``kernels`` JSON line, one row per kernel with the numbers of the
+9. verify: the verification harnesses on the card.  The model checker
+   (``dragonboat_tpu_torch.model_check``) at the fast scope on the card
+   and on the CPU in this process: zero violations, the scope complete,
+   the same states, transitions and digest of the explored set; K1
+   launched exactly step calls x a CPU step's count at the scope's
+   geometry and equal to its plain arm on tapped inputs; the double_vote
+   mutation caught on the card; wall seconds of each run
+   ``[verify_model_check]``.  ``run_schedule`` (``dragonboat_tpu_torch
+   .chaos``) with seed 7 mesh-resident and, under ``--verify`` only, the
+   reference's fast seeds 1, 7, 9, 13, 25 on device-resident shards at
+   depth 0 and seed 1 at depth 1, each with the report ok,
+   writes acknowledged, the plan equal to ``FaultPlan.generate``, K1
+   launched (K2 too on the mesh) and both equal to their plain arms on
+   tapped inputs ``[verify_chaos]``; the detector differential at seed 1
+   ``[verify_detector]``; with ``--verify`` ``run_hotspot(11)``
+   ``[verify_hotspot]``.  A live device-resident cluster serving the
+   model checker's commit_without_quorum kernel trips
+   ``leader_commit_quorum`` (violations seen, the flight recorder's edge,
+   /healthz 503), and its engines' step EWMA is still above the
+   reference's idle step, the reason every run of the runner here takes
+   one time scale (x10) on its windows ``[verify_probe]``.  With
+   ``--verify``: seed 7's plan (partition, kill, delay) on 1024
+   device-resident shards x 3 (phase 7's cell; halved
+   while a run takes over 180 s), 2 asynchronous writes a shard before
+   the first fault and after the heal, every acknowledged write in the
+   journals of all three replicas, the journals equal ``[verify_wide]``;
+   K1's and K2's entries timed on the path's inputs ``[verify_kernel]``;
+10. the ``kernels`` JSON line, one row per kernel with the numbers of the
    entry the main path launches (``path`` "slice": launches phase 5's;
-   ``path`` "mesh": launches phase 8's NodeHost cell's), then the final
-   ``{"ok": true, ...}`` line.
+   ``path`` "mesh": launches phase 8's NodeHost cell's; ``path``
+   "verify": launches phase 9's), then the final ``{"ok": true, ...}``
+   line.
 
 Every number the run takes is printed on these lines.  Needs no network
 and no JAX, and takes no arguments.  ``--compare-workers [ROUNDS]`` runs
@@ -133,7 +161,9 @@ only phases 1, 2 and the 1024 x 3 NodeHost cell, under the reference's
 EngineConfig and under a single step worker, in turn, ROUNDS times each.
 ``--compare-reductions [ROUNDS]`` runs only phases 1, 2 and the same cell
 with the three reductions on (the default ExpertConfig) and off, in turn,
-ROUNDS times each.  ``--mesh`` runs only phases 1, 2 and 8.
+ROUNDS times each.  ``--mesh`` runs only phases 1, 2 and 8; ``--verify``
+only phases 1, 2 and 9, with every fast seed, the depth-1 schedule, the
+hotspot and the wide schedule.
 """
 
 from __future__ import annotations
@@ -193,6 +223,26 @@ PROFILE_STEPS, LAUNCHES_PER_STEP_BEFORE = 6, 10807
 # script's time limit
 MESH_GROUPS, MESH_PARITY_STEPS, MESH_AB_STEPS = 1024, 30, 40
 MESH_ELECT_MAX, MESH_SETTLE, MESH_DEPTH1_SHARDS = 400, 6, 64
+# phase 9, the verification harnesses: the reference's chaos_fast seeds
+# (--verify runs them at depth 0; it alone also runs the depth-1 and the
+# wide schedules and the hotspot, for the time limit: with the depth-1
+# and wide schedules in it the whole script took 1233.280934844 s on an
+# H100, phase 9 392.875281027 s of it).  One scale for
+# every wall-clock window of the runner (and the hotspot's host-hot
+# threshold, 30 ms x the scale): the reference's windows and threshold
+# are set for its compiled step, idle at 10-15 ms (REF_IDLE_STEP_US),
+# and the port's eager engine step at the chaos cluster's geometry takes
+# ~0.2 s on the card; the probe fails the phase once the idle step is
+# down to the reference's, when the scale must go (ROADMAP item 17).
+# Then the K1 tap stride in the model checker's batched steps, the
+# probe's cluster seed, and the wide schedule: seed 7's plan at 1024
+# shards x 3 (phase 7's cell), WIDE_WRITES writes a shard before the
+# first fault and after the heal, a pause after each plan step, halved
+# while over the limit
+VERIFY_SEEDS = (1, 7, 9, 13, 25)
+CHAOS_TIME_SCALE, REF_IDLE_STEP_US = 10.0, 15_000
+MC_TAP_EVERY, PROBE_SEED = 23, 41
+WIDE_SHARDS, WIDE_WRITES, WIDE_SEED, WIDE_STEP_S, WIDE_LIMIT_S = 1024, 2, 7, 1.0, 180.0
 # the entry of each kernel that the main path launches
 MAIN_PATH_ENTRIES = ("commit_quorum", "gather_lanes_multi", "kv_apply")
 # the ExpertConfig switches that turn the three decimated reductions off
@@ -2650,11 +2700,12 @@ def _mesh_depth1(dev, tag) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def _mesh_rows(torch, k1_inputs, k2_inputs, launches) -> list[dict]:
-    """The kernels line's rows for the mesh cell: K1's commit_quorum and
-    K2's gather_lanes_multi on the inputs the cell gave them (the last
-    tap of each), timed against their plain arms, with the cell's
-    launches."""
+def _mesh_rows(torch, k1_inputs, k2_inputs, launches,
+               path: str = "mesh") -> list[dict]:
+    """The kernels line's rows for a path (the mesh cell's by default):
+    K1's commit_quorum and K2's gather_lanes_multi on the inputs the path
+    gave them (the last tap of each), timed against their plain arms,
+    with the path's launches."""
     from dragonboat_tpu_torch.parallel import fabric_kernels as fk
 
     match, kind = k1_inputs[-1]
@@ -2664,7 +2715,7 @@ def _mesh_rows(torch, k1_inputs, k2_inputs, launches) -> list[dict]:
     k1 = {"name": "commit_quorum", "kernel": "quorum_match", "route": "cuda",
           "source": "dragonboat_tpu_torch/csrc/quorum_match.cu",
           "replaces": "dragonboat_tpu/parallel/fabric_pallas.py:177",
-          "path": "mesh", "shape": f"match [{G}, {P}] i32, kind [{G}, {P}] i32",
+          "path": path, "shape": f"match [{G}, {P}] i32, kind [{G}, {P}] i32",
           "launches": launches["quorum_match"],
           "max_abs_err": max_abs_err(torch, got, ref),
           "bound_ms": b_ms, "bound_by": b_by,
@@ -2679,7 +2730,7 @@ def _mesh_rows(torch, k1_inputs, k2_inputs, launches) -> list[dict]:
     k2 = {"name": "gather_lanes_multi", "kernel": "gather_lanes", "route": "cuda",
           "source": "dragonboat_tpu_torch/csrc/gather_lanes.cu",
           "replaces": "dragonboat_tpu/parallel/fabric_pallas.py:101",
-          "path": "mesh",
+          "path": path,
           "shape": f"{len(fields)} fields [{fields[0].shape[0]}, {fields[0].shape[1]}], "
                    f"{len(lanes)} lanes [{N}, {Rt}, {Rs}] i32",
           "launches": launches["gather_lanes"],
@@ -2688,7 +2739,7 @@ def _mesh_rows(torch, k1_inputs, k2_inputs, launches) -> list[dict]:
           **_times(torch, lambda: fk.gather_lanes_multi(fields, lanes),
                    lambda: fk.gather_lanes_multi_plain(fields, lanes), None)}
     for r in (k1, k2):
-        check(r["max_abs_err"] == 0, f"mesh: {r['name']} differs from its plain arm")
+        check(r["max_abs_err"] == 0, f"{path}: {r['name']} differs from its plain arm")
     return [k1, k2]
 
 
@@ -2716,6 +2767,393 @@ def phase_mesh(torch, dev, smi: str) -> list[dict]:
         say("mesh_kernel", **{k: v for k, v in r.items() if k != "timing"},
             timing=json.dumps(r["timing"]))
     say("mesh_total", seconds=time.perf_counter() - t0)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the verification harnesses (model checker, chaos runner, probe)
+# ---------------------------------------------------------------------------
+
+
+def _counted(torch, fn, total: dict):
+    """``fn()`` with every launch counted over it alone, added to
+    ``total``."""
+    from dragonboat_tpu_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    for k, v in kernels.launches.items():
+        total[k] = total.get(k, 0) + v
+    return out
+
+
+def _verify_model_check(torch, dev) -> tuple[dict, list]:
+    """The fast scope on the card and on the CPU in this process: zero
+    violations, the same explored set; K1 launched exactly step calls x
+    the per-step count and equal to its plain arm on tapped inputs; the
+    double_vote mutation caught on the card.  Returns the line and the
+    K1 taps."""
+    from dragonboat_tpu_torch import model_check as mc
+    from dragonboat_tpu_torch.core import kernel as K
+
+    launches: dict = {}
+    tap, untap = _tap(K, "commit_quorum", MC_TAP_EVERY)
+    try:
+        t0 = time.perf_counter()
+        card = mc.ModelChecker(scope="fast", device=dev)
+        res = _counted(torch, card.run, launches)
+        card_s = time.perf_counter() - t0
+    finally:
+        untap()
+    per_step = _k1_calls_per_step(card.kp)
+    t1 = time.perf_counter()
+    cpu = mc.ModelChecker(scope="fast", device="cpu")
+    ref = cpu.run()
+    cpu_s = time.perf_counter() - t1
+    t2 = time.perf_counter()
+    mut = mc.run_scope("fast", mutation="double_vote", device=dev)
+    mut_s = time.perf_counter() - t2
+    held = _tapped(torch, tap["inputs"], "k1_held", "commit_quorum")
+    out = {"scope": "fast", "states": res["states_explored"],
+           "transitions": res["transitions"], "step_calls": res["step_calls"],
+           "violations": len(res["violations"]),
+           "scope_complete": res["scope_complete"],
+           "seen_digest": card.seen_digest(), "cpu_seen_digest": cpu.seen_digest(),
+           "card_s": card_s, "cpu_s": cpu_s,
+           "k1_launches": launches["quorum_match"], "k1_per_step": per_step,
+           "k1_calls": tap["calls"], **held,
+           "double_vote_violations": len(mut["violations"]),
+           "double_vote_properties": json.dumps(sorted(
+               {v["property"] for v in mut["violations"]})),
+           "double_vote_s": mut_s}
+    check(res["violations"] == [] and res["scope_complete"],
+          f"model check: violations on the card {res['violations'][:3]}")
+    check((res["states_explored"], res["transitions"], card.seen_digest())
+          == (ref["states_explored"], ref["transitions"], cpu.seen_digest()),
+          "model check: the card's explored set differs from the CPU's")
+    check(launches["quorum_match"] == res["step_calls"] * per_step
+          == tap["calls"],
+          f"model check: {launches['quorum_match']} K1 launches, "
+          f"{tap['calls']} calls, in {res['step_calls']} steps of {per_step}")
+    check(held["k1_held_mismatches"] == 0,
+          "model check: K1 differs from its plain arm")
+    check(any(v["property"] == "invariant:vote_once_per_term"
+              for v in mut["violations"]),
+          "model check: double_vote escaped the fast scope on the card")
+    return out, tap["inputs"]
+
+
+def _verify_schedule(torch, dev, seed: int, **kw) -> tuple[dict, dict]:
+    """One run_schedule on the card with K1 and K2 tapped and every
+    launch counted over the run alone."""
+    from dragonboat_tpu_torch.chaos import FaultPlan, run_schedule
+    from dragonboat_tpu_torch.core import kernel as K
+    from dragonboat_tpu_torch.core import router
+
+    launches: dict = {}
+    k1, untap1 = _tap(K, "commit_quorum", K1_TAP_EVERY)
+    k2, untap2 = _tap(router, "gather_lanes_multi", 7)
+    try:
+        t0 = time.perf_counter()
+        r = _counted(torch, lambda: run_schedule(seed, device=dev, **kw), launches)
+        secs = time.perf_counter() - t0
+    finally:
+        untap1()
+        untap2()
+    mesh = kw.get("mesh_resident", False)
+    path = ("mesh" if mesh else
+            f"device_resident depth {kw.get('pipeline_depth', 0)}")
+    out = {"seed": seed, "path": path, "time_scale": kw.get("time_scale", 1.0),
+           "writes_per_plan_step": kw.get("proposals_per_step", 4),
+           "ok": r.report.ok, "failures": json.dumps(r.report.failures),
+           "acked": r.acked_count, "seconds": secs,
+           "plan_equal": r.plan_json == FaultPlan.generate(
+               seed, n_replicas=3, steps=6).to_json(),
+           "k1_launches": launches["quorum_match"],
+           "k2_launches": launches["gather_lanes"],
+           "violations_seen": r.report.invariant_probe.get("violations_seen")}
+    out.update(_tapped(torch, k1["inputs"], "k1_held", "commit_quorum"))
+    if mesh:
+        out.update(_tapped(torch, k2["inputs"], "k2_held", "gather_lanes_multi"))
+    say("verify_chaos", **out)
+    check(r.report.ok, f"chaos seed {seed} ({path}): {r.report.failures}")
+    check(r.acked_count > 0, f"chaos seed {seed} ({path}): nothing acknowledged")
+    check(out["plan_equal"], f"chaos seed {seed}: plan differs from FaultPlan.generate")
+    check(launches["quorum_match"] > 0, f"chaos seed {seed} ({path}): K1 never launched")
+    check(out["k1_held_mismatches"] == 0, f"chaos seed {seed}: K1 differs from its plain arm")
+    if mesh:
+        check(launches["gather_lanes"] > 0, f"chaos seed {seed} (mesh): K2 never launched")
+        check(out["k2_held_mismatches"] == 0, f"chaos seed {seed}: K2 differs from its plain arm")
+    return launches, {"k1": k1["inputs"], "k2": k2["inputs"]}
+
+
+def _verify_chaos(torch, dev, full: bool) -> tuple[dict, dict]:
+    """[verify_chaos]: with ``full`` the fast seeds on device-resident
+    shards at depth 0 and seed 1 at depth 1; always seed 7 mesh-resident
+    and the detector differential; with ``full`` run_hotspot(11).
+    Returns the summed launches and the last taps of K1 (an engine's) and
+    K2 (the mesh route's)."""
+    from dragonboat_tpu_torch.chaos import run_detector_differential, run_hotspot
+
+    total: dict = {}
+    taps = {}
+    runs = [(7, dict(mesh_resident=True, time_scale=CHAOS_TIME_SCALE))]
+    if full:
+        runs = ([(seed, dict(device_resident=True, time_scale=CHAOS_TIME_SCALE))
+                 for seed in VERIFY_SEEDS]
+                + [(1, dict(device_resident=True, pipeline_depth=1,
+                            time_scale=CHAOS_TIME_SCALE))] + runs)
+    for seed, kw in runs:
+        launches, t = _verify_schedule(torch, dev, seed, **kw)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        taps["k1"] = t["k1"]
+        if kw.get("mesh_resident"):
+            taps["k2"] = t["k2"]
+    t0 = time.perf_counter()
+    d = _counted(torch, lambda: run_detector_differential(
+        1, device=dev, time_scale=CHAOS_TIME_SCALE), total)
+    say("verify_detector", seed=1, fault=d.fault, anomaly_class=d.anomaly_class,
+        raised=d.raised, cleared=d.cleared,
+        differential_checks=d.differential_checks,
+        failures=json.dumps(d.failures), seconds=time.perf_counter() - t0)
+    check(d.ok and d.raised and d.cleared and d.differential_checks >= 2,
+          f"detector differential: {d.failures}")
+    if full:
+        t0 = time.perf_counter()
+        h = _counted(torch, lambda: run_hotspot(
+            11, device=dev, time_scale=CHAOS_TIME_SCALE), total)
+        say("verify_hotspot", seed=11, time_scale=CHAOS_TIME_SCALE, ok=h.ok,
+            hot_shard=h.hot_shard, initial_leader=h.initial_leader,
+            final_leader=h.final_leader, transfers=len(h.transfers),
+            acked=h.acked_count, failures=json.dumps(h.report.failures),
+            seconds=time.perf_counter() - t0)
+        check(h.ok, f"hotspot: {h.report.failures}")
+    return total, taps
+
+
+def _verify_probe(torch, dev) -> dict:
+    """[verify_probe]: a live device-resident cluster serving the model
+    checker's commit_without_quorum kernel trips leader_commit_quorum:
+    violations_seen, the flight recorder's edge, /healthz 503."""
+    from dragonboat_tpu_torch import flight
+    from dragonboat_tpu_torch.chaos import runner
+    from dragonboat_tpu_torch.engine import kernel_engine as ke
+    from dragonboat_tpu_torch.model_check import load_kernel_module
+    from dragonboat_tpu_torch.server.metrics_http import MetricsServer
+
+    t0 = time.perf_counter()
+    mut = load_kernel_module("commit_without_quorum")
+    saved = ke.kernel_step, ke.kernel_step_donated
+    cluster = runner._Cluster(
+        seed=PROBE_SEED, n=3, device_resident=True, device=dev,
+        time_scale=CHAOS_TIME_SCALE,
+        expert_overrides=dict(kernel_capacity=8, kernel_apply_batch=16,
+                              kernel_compaction_overhead=16,
+                              fleet_stats_every=1))
+    # the engine binds these module globals at construction time
+    ke.kernel_step, ke.kernel_step_donated = mut.step, mut.step_donated
+    try:
+        cluster.start()
+        ke.kernel_step, ke.kernel_step_donated = saved
+        seq0 = flight.RECORDER.next_seq
+        deadline = time.perf_counter() + 120.0
+        i, seen = 0, {}
+        while time.perf_counter() < deadline:
+            cluster.propose(f"m{i}=x".encode(), timeout=4.0)
+            i += 1
+            seen = {rid: cluster.hosts[rid]._invariants_snapshot()
+                    for rid in cluster.live_rids()}
+            if any(v["violations_seen"] for v in seen.values()):
+                break
+        rid, snap = max(seen.items(), key=lambda kv: kv[1]["violations_seen"])
+        nh = cluster.hosts[rid]
+        # the engine step's latency EWMA on each host, at the load of
+        # one write at a time (CHAOS_TIME_SCALE's reason)
+        ewma = [int(cluster.hosts[r].events.metrics.snapshot().get(
+            "engine.kernel_step.ewma_us", 0)) for r in cluster.live_rids()]
+        edges = [r for r in flight.RECORDER.tail(512)
+                 if r.get("kind") == flight.INVARIANT_VIOLATION and r["seq"] >= seq0]
+        server = MetricsServer([nh.events.metrics.registry],
+                               invariants_source=nh._invariants_snapshot)
+        try:
+            status, body, _ = server.healthz()
+        finally:
+            server.close()
+    finally:
+        ke.kernel_step, ke.kernel_step_donated = saved
+        cluster.close()
+    tripped = sorted({n for r in edges for n in r.get("invariants", [])})
+    out = {"mutation": "commit_without_quorum", "proposals": i,
+           "violations_seen": snap["violations_seen"],
+           "flight_edges": len(edges), "tripped": json.dumps(tripped),
+           "healthz": status, "step_ewma_us": json.dumps(ewma),
+           "ref_idle_step_us": REF_IDLE_STEP_US,
+           "seconds": time.perf_counter() - t0}
+    check(snap["violations_seen"] > 0, f"probe: no violation seen {snap}")
+    check(min(ewma) > REF_IDLE_STEP_US,
+          f"probe: the engine step's EWMA {ewma} us is down to the "
+          f"reference's idle {REF_IDLE_STEP_US} us: run the chaos runner "
+          "at time_scale 1.0 and remove the knob (ROADMAP item 17)")
+    check(edges, "probe: no invariant_violation flight record")
+    check("leader_commit_quorum" in tripped,
+          f"probe: leader_commit_quorum not tripped ({tripped})")
+    check(status == 503 and json.loads(body)["invariants"]["violations_seen"] > 0,
+          f"probe: /healthz {status}")
+    return out
+
+
+def _wide_leaders(cluster, shards: int) -> dict:
+    """shard -> the leader every live, unpartitioned host agrees on."""
+    hosts = [cluster.hosts[r] for r in cluster.live_rids()
+             if not cluster.hosts[r]._partitioned]
+    out = {}
+    for sid in range(1, shards + 1):
+        ids = {nh.get_leader_id(sid) for nh in hosts}
+        if len(ids) == 1:
+            lid, ok = ids.pop()
+            if ok and lid in cluster.hosts and cluster.live(lid):
+                out[sid] = lid
+    return out
+
+
+def _wide_elect(cluster, shards: int, deadline_s: float) -> float:
+    t0 = time.perf_counter()
+    while len(_wide_leaders(cluster, shards)) < shards:
+        check(time.perf_counter() - t0 < deadline_s,
+              f"wide: {len(_wide_leaders(cluster, shards))} of {shards} "
+              "shards elected")
+        time.sleep(0.5)
+    return time.perf_counter() - t0
+
+
+def _wide_writes(cluster, shards: int, tag: str, deadline_s: float) -> dict:
+    """WIDE_WRITES asynchronous writes per shard on its leader's host,
+    retried on a drop or timeout as a client does; shard -> acked cmds."""
+    from dragonboat_tpu_torch.request import RequestResultCode
+
+    leaders = _wide_leaders(cluster, shards)
+
+    def send(sid, w):
+        nh = cluster.hosts[leaders.get(sid) or cluster.live_rids()[0]]
+        cmd = f"{tag}{sid}x{w}=v".encode()
+        try:
+            return cmd, nh.propose(nh.get_noop_session(sid), cmd, timeout_s=60)
+        except Exception:
+            return cmd, None
+
+    t0 = time.perf_counter()
+    acked: dict = {sid: [] for sid in range(1, shards + 1)}
+    pending = {(sid, w): send(sid, w) for sid in range(1, shards + 1)
+               for w in range(WIDE_WRITES)}
+    while pending:
+        check(time.perf_counter() - t0 < deadline_s,
+              f"wide: {len(pending)} writes never acknowledged")
+        again = {}
+        for key, (cmd, rs) in pending.items():
+            if rs is not None and rs.wait(60).code == RequestResultCode.COMPLETED:
+                acked[key[0]].append(cmd)
+                continue
+            time.sleep(0.01)
+            leaders.update(_wide_leaders(cluster, shards))
+            again[key] = send(*key)
+        pending = again
+    return acked
+
+
+def _verify_wide(torch, dev, shards: int) -> dict:
+    """[verify_wide]: seed 7's fault plan (partition, kill, delay) on
+    ``shards`` device-resident shards x 3 (kernel_capacity = shards), with
+    WIDE_WRITES writes on every shard before the first fault and after
+    the heal; every acknowledged write in the journal of all three
+    replicas, the journals equal, on every shard."""
+    from dragonboat_tpu_torch.chaos import FaultPlan, runner
+
+    plan = FaultPlan.generate(WIDE_SEED, n_replicas=3, steps=6)
+    t0 = time.perf_counter()
+    cluster = runner._Cluster(
+        seed=WIDE_SEED, n=3, device_resident=True, device=dev,
+        time_scale=CHAOS_TIME_SCALE, shards=tuple(range(1, shards + 1)),
+        expert_overrides=dict(kernel_capacity=shards))
+    try:
+        cluster.start()
+        admit_s = time.perf_counter() - t0
+        elect_s = _wide_elect(cluster, shards, 300.0)
+        before = _wide_writes(cluster, shards, "b", 300.0)
+        t1 = time.perf_counter()
+        events = []
+        for step in range(plan.steps + 1):
+            for ev in plan.events_at(step):
+                events.append(f"{ev.kind}@{ev.target}")
+                cluster.execute(ev)
+            time.sleep(WIDE_STEP_S)
+        fault_s = time.perf_counter() - t1
+        t2 = time.perf_counter()
+        reelect_s = _wide_elect(cluster, shards, 300.0)
+        after = _wide_writes(cluster, shards, "a", 300.0)
+        converged, missing = False, shards
+        while not converged:
+            check(time.perf_counter() - t2 < 300.0,
+                  f"wide: {missing} shards not converged")
+            missing = 0
+            for sid in range(1, shards + 1):
+                js = cluster.journals(shard=sid)
+                vals = list(js.values())
+                have = set(vals[0]) if vals else set()
+                if (len(js) != 3 or any(v != vals[0] for v in vals[1:])
+                        or not all(c in have for c in before[sid] + after[sid])):
+                    missing += 1
+            converged = missing == 0
+            if not converged:
+                time.sleep(0.5)
+        converge_s = time.perf_counter() - t2
+        probe = cluster.invariant_counters()
+    finally:
+        cluster.close()
+    out = {"seed": WIDE_SEED, "shards": shards, "replicas": 3,
+           "events": json.dumps(events),
+           "acked_before": sum(map(len, before.values())),
+           "acked_after": sum(map(len, after.values())),
+           "admit_s": admit_s, "elect_s": elect_s, "fault_window_s": fault_s,
+           "reelect_s": reelect_s, "converge_s": converge_s,
+           "violations_seen": probe["violations_seen"],
+           "seconds": time.perf_counter() - t0}
+    check(out["acked_before"] == out["acked_after"] == shards * WIDE_WRITES,
+          "wide: not every write acknowledged")
+    check(probe["violations_seen"] == 0, f"wide: invariant probe {probe}")
+    return out
+
+
+def phase_verify(torch, dev, smi: str, full: bool) -> list[dict]:
+    """Phase 9: the model checker, the chaos runner and the invariant
+    probe on the card.  The default run, after phases 1-8, runs the
+    model checker, the mesh schedule, the detector differential and the
+    probe; ``full`` (``--verify``) also every fast seed at depth 0, the
+    depth-1 schedule, the hotspot and the wide schedule.  Returns the
+    kernels line's verify rows."""
+    t0 = time.perf_counter()
+    mc, mc_taps = _verify_model_check(torch, dev)
+    say("verify_model_check", **mc, card=json.dumps(smi))
+    launches, taps = _verify_chaos(torch, dev, full)
+    launches["quorum_match"] += mc["k1_launches"]
+    say("verify_probe", **_counted(torch, lambda: _verify_probe(torch, dev),
+                                   launches), card=json.dumps(smi))
+    shards = 0
+    if full:
+        shards = WIDE_SHARDS
+        while True:
+            w = _counted(torch, lambda: _verify_wide(torch, dev, shards), launches)
+            say("verify_wide", **w, card=json.dumps(smi))
+            if w["seconds"] <= WIDE_LIMIT_S or shards <= 64:
+                break
+            shards //= 2
+    rows = _mesh_rows(torch, taps["k1"], taps["k2"], launches, path="verify")
+    for r in rows:
+        say("verify_kernel", **{k: v for k, v in r.items() if k != "timing"},
+            timing=json.dumps(r["timing"]))
+    say("verify_total", seconds=time.perf_counter() - t0, wide_shards=shards)
     return rows
 
 
@@ -2774,12 +3212,16 @@ def main() -> int:
     if sys.argv[1:2] == ["--mesh"]:
         phase_mesh(torch, dev, device["nvidia_smi"])
         return 0
+    if sys.argv[1:2] == ["--verify"]:
+        phase_verify(torch, dev, device["nvidia_smi"], full=True)
+        return 0
     rows = phase_kernels(torch, dev)
     phase_parity(torch, dev)
     launches = phase_slice(torch, dev)
     phase_loops(torch, dev)
     phase_nodehost(torch, dev, device["nvidia_smi"])
     mesh_rows = phase_mesh(torch, dev, device["nvidia_smi"])
+    verify_rows = phase_verify(torch, dev, device["nvidia_smi"], full=False)
     say("total", seconds=time.perf_counter() - t0)
     # one row per kernel: the numbers of the entry the main path launches
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
@@ -2788,9 +3230,9 @@ def main() -> int:
         {"name": r["kernel"], "entry": r["name"], "path": "slice",
          "launches": launches[r["kernel"]], **{k: r[k] for k in keys}}
         for r in rows if r["name"] in MAIN_PATH_ENTRIES] + [
-        {"name": r["kernel"], "entry": r["name"], "path": "mesh",
+        {"name": r["kernel"], "entry": r["name"], "path": r["path"],
          "launches": r["launches"], **{k: r[k] for k in keys}}
-        for r in mesh_rows]}))
+        for r in mesh_rows + verify_rows]}))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))

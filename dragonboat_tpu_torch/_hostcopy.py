@@ -7,14 +7,19 @@ own copies of these modules, byte for byte the reference's except that the
 ``dragonboat_tpu`` package prefix reads ``dragonboat_tpu_torch``, and two
 rewrites that touch comments and docstrings only: citations of the Go
 reference checkout drop its absolute location (``reference/raftpb/...``),
-and the JAX package's change numbers read ``round N``.  The
+and the JAX package's change and issue numbers read ``round N``.  The
 modules that touch JAX (``tracing``, ``capacity``, the device reductions
 ``core/fleet``, ``core/health`` and ``core/invariants``, ``engine/dispatch``,
-``engine/kernel_engine``, ``nodehost``) are ported by hand and are not
-listed here.
+``engine/kernel_engine``, ``nodehost``, ``chaos/runner``) are ported by
+hand and are not listed here.  Two hand ports follow one reference file
+each closely (``HAND_PORTS``: the chaos runner, and the model checker from
+``scripts/model_check.py``); each is held to its recorded diff against the
+rewritten reference text under ``tests/hand_ports/``, so an edit on either
+side shows as drift until the diff is recorded again.
 
     python -m dragonboat_tpu_torch._hostcopy          # rewrite the copies
     python -m dragonboat_tpu_torch._hostcopy --check  # exit 1 on drift
+    python -m dragonboat_tpu_torch._hostcopy --record-hand-diffs
 
 The copy reads the reference's source files as text; it imports nothing of
 the reference package.
@@ -22,6 +27,7 @@ the reference package.
 
 from __future__ import annotations
 
+import difflib
 import re
 import sys
 from pathlib import Path
@@ -46,7 +52,15 @@ MODULES = (
     "transport/__init__", "transport/chan", "transport/chunks",
     "transport/hub",
     "node", "engine/__init__", "engine/apply_pool",
+    "chaos/__init__", "chaos/crashfs", "chaos/faultplan", "chaos/oracle",
 )
+
+#: hand ports (path under the port) -> the reference file each follows
+HAND_PORTS = {
+    "chaos/runner.py": "dragonboat_tpu/chaos/runner.py",
+    "model_check.py": "scripts/model_check.py",
+}
+HAND_DIFFS = ROOT / "tests" / "hand_ports"
 
 # ``dragonboat_tpu`` as a package name: followed by ``.name`` or by
 # `` import``; file paths (``/tmp/dragonboat_tpu/``) and longer names
@@ -55,10 +69,10 @@ _PREFIX = re.compile(r"\bdragonboat_tpu(?=\.[A-Za-z_]|\s+import\b)")
 
 
 # citations of the Go reference checkout (an absolute directory before
-# ``reference/``), and the JAX package's change numbers ("PR" and a
-# number), as they appear in its comments and docstrings
+# ``reference/``), and the JAX package's change and issue numbers ("PR"
+# or "ISSUE" and a number), as they appear in its comments and docstrings
 _GO_CHECKOUT = re.compile(r"/\w+/(?=reference/)")
-_CHANGE_NO = re.compile(r"\bPR (?=\d)")
+_CHANGE_NO = re.compile(r"\b(?:PR|ISSUE) (?=\d)")
 
 
 def rewrite(text: str) -> str:
@@ -81,6 +95,38 @@ def drift() -> list[str]:
                   if not p.exists() or p.read_text() != text)
 
 
+def hand_diff(port_rel: str) -> str:
+    """The port file's diff against the rewritten reference text, no
+    context, hunk positions dropped (a shift elsewhere is no drift)."""
+    ref = rewrite((ROOT / HAND_PORTS[port_rel]).read_text())
+    port = (PORT / port_rel).read_text()
+    out = []
+    for line in difflib.unified_diff(ref.splitlines(), port.splitlines(),
+                                     n=0, lineterm=""):
+        if line.startswith(("---", "+++")):
+            continue
+        out.append("@@" if line.startswith("@@") else line)
+    return "\n".join(out) + "\n"
+
+
+def _hand_diff_path(port_rel: str) -> Path:
+    return HAND_DIFFS / (port_rel[:-3].replace("/", "_") + ".diff")
+
+
+def hand_drift() -> list[str]:
+    """Hand ports whose diff against the reference is not the recorded
+    one."""
+    return sorted(f"dragonboat_tpu_torch/{p}" for p in HAND_PORTS
+                  if not _hand_diff_path(p).exists()
+                  or _hand_diff_path(p).read_text() != hand_diff(p))
+
+
+def record_hand_diffs() -> None:
+    HAND_DIFFS.mkdir(parents=True, exist_ok=True)
+    for p in HAND_PORTS:
+        _hand_diff_path(p).write_text(hand_diff(p))
+
+
 def write() -> None:
     for path, text in expected().items():
         path.parent.mkdir(parents=True, exist_ok=True)
@@ -89,10 +135,13 @@ def write() -> None:
 
 def main(argv: list[str]) -> int:
     if "--check" in argv:
-        bad = drift()
+        bad = drift() + hand_drift()
         for name in bad:
             print(f"drift: {name}")
         return 1 if bad else 0
+    if "--record-hand-diffs" in argv:
+        record_hand_diffs()
+        return 0
     write()
     return 0
 

@@ -2,7 +2,8 @@
 
 - ``dragonboat_tpu_torch`` imports neither JAX nor the JAX package;
 - with no CUDA device, an entry point given no device raises instead of
-  running on the CPU (the mesh path's too);
+  running on the CPU (the mesh path's, the chaos runner's and the model
+  checker's too);
 - a mesh-resident shard attaches the port's MeshEngine on the CPU when the
   host asks for the CPU;
 - every kernel wrapper takes its plain arm for CPU tensors and leaves its
@@ -33,6 +34,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         import sys
         from dragonboat_tpu_torch import bench_loop as bl
         from dragonboat_tpu_torch import convert  # noqa: F401
+        # the verification harnesses: chaos runner and model checker
+        import dragonboat_tpu_torch.chaos  # noqa: F401
+        import dragonboat_tpu_torch.model_check  # noqa: F401
         kp = bl.sm_params(3, device="cpu")
         st, box = bl.elect_all(kp, 3, bl.make_cluster(kp, 2, 3, device="cpu"))
         kv, kvs = bl.make_device_sm(2, 3, table_cap=128, device="cpu")
@@ -77,6 +81,21 @@ def test_entry_points_without_device_raise_when_no_gpu():
         bl.sm_params(3)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceKV(table_cap=64).init_state(3)
+
+
+def test_verify_harnesses_without_device_raise_when_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from dragonboat_tpu_torch import chaos, model_check
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_check.run_scope("fast")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model_check.main(["--scope", "fast"])
+    for run in (chaos.run_schedule, chaos.run_detector_differential,
+                chaos.run_hotspot):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(1)
 
 
 def test_wrappers_take_plain_arm_on_cpu_without_counting():
@@ -401,3 +420,18 @@ def test_host_layer_copies_match_the_reference():
     from dragonboat_tpu_torch import _hostcopy
 
     assert _hostcopy.drift() == []
+
+
+def test_hand_ports_differ_from_the_reference_only_by_their_recorded_diffs():
+    """The chaos runner and the model checker are ported by hand from one
+    reference file each; an edit on either side that the recorded diff
+    under tests/hand_ports/ does not hold shows as drift."""
+    from dragonboat_tpu_torch import _hostcopy
+
+    assert _hostcopy.hand_drift() == []
+    runner = _hostcopy.hand_diff("chaos/runner.py")
+    # the runner's only JAX code is the health differential's device_get
+    removed = [ln for ln in runner.splitlines() if ln.startswith("-")]
+    assert any("jax.device_get" in ln for ln in removed)
+    assert not any("jax" in ln for ln in runner.splitlines()
+                   if ln.startswith("+") and "JAX" not in ln)
