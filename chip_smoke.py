@@ -28,7 +28,17 @@ Phases, each printing one line (any failure exits non-zero):
 4. parity: the kernel path against the plain path on the card at
    1024 groups x 3, and the card against the CPU at 64 groups x 3, over
    elect_all + 40 run_steps_sm steps, every state and table leaf equal;
-5. slice: 8192 groups x 3 replicas with a 1024-slot DeviceKV per replica,
+5. slice: first ``[graph_slice]``, the step graphed against eager (the
+   compiled entries of ``dragonboat_tpu_torch.graphs`` replay one CUDA
+   graph per geometry; ``graphs.eager()`` runs the eager bodies): from
+   one elected 8192 x 3 device-SM state, GRAPH_STEPS ``full_step_sm``
+   steps on each arm in lockstep with every state, box, table and output
+   leaf equal after every step, one capture (taken under CUDA's sync
+   debug mode "error"), K1/K2/K3 launches per graphed step counted
+   through replays, step ms of both arms, torch.profiler's device-busy
+   share and each kernel's in-graph device time, peak memory of both, and
+   a latency-loop and a storm window graphed against eager.  Then 8192
+   groups x 3 replicas with a 1024-slot DeviceKV per replica (graphed),
    elect_all, a timed window of run_steps_sm steps, PROFILE_STEPS more
    under torch.profiler (CUDA launches per step, beside the 10,807 the
    step made before K1 and K2 took their batched entries), a
@@ -76,7 +86,10 @@ Phases, each printing one line (any failure exits non-zero):
    step's (``commit_quorum``, exactly as many per engine step as a CPU
    step at the engine's geometry makes: 21) and the
    invariant probe's (``quorum_match``), and K1 against its plain arm on a
-   sample of the inputs each call site gave it ``[nodehost]``.  Then, on
+   sample of the inputs each call site gave it, and the host ms of the
+   engine step's phases (staging, copy-in and replay, output pass)
+   ``[nodehost]``; the same cell with the engines' eager bodies, its
+   step p50/p90 beside the graphed cell's ``[nodehost_eager]``.  Then, on
    every host: ``/metrics`` (the leader counts sum to 1024), ``/healthz``
    200, ``/debug/groups`` and ``/debug/group/<id>`` through the port's
    validators (the device row equal to ``health_row``), no invariant
@@ -110,7 +123,8 @@ Phases, each printing one line (any failure exits non-zero):
    replicas=3, n_local=1024)`` with ``Config(mesh_resident=True)`` over
    the chan transport and the reference's default ExpertConfig; 1024
    shards x 3 replicas, 4 writes per shard, every write acknowledged and
-   the last read back from all 3,072 replicas; the fabric census's p50
+   the last read back from all 3,072 replicas (then the same serve with
+   the engine's eager bodies, ``[mesh_eager]``); the fabric census's p50
    commit host hops 0.0 and all six link classes ``resident``; K1 (step
    and invariant probe) and K2 launches counted exactly over the cell and
    tapped against their plain arms; then one link of shard 1 cut with
@@ -161,13 +175,16 @@ only phases 1, 2 and the 1024 x 3 NodeHost cell, under the reference's
 EngineConfig and under a single step worker, in turn, ROUNDS times each.
 ``--compare-reductions [ROUNDS]`` runs only phases 1, 2 and the same cell
 with the three reductions on (the default ExpertConfig) and off, in turn,
-ROUNDS times each.  ``--mesh`` runs only phases 1, 2 and 8; ``--verify``
+ROUNDS times each.  ``--compare-turns [ROUNDS]`` runs only phases 1, 2 and
+the same cell graphed with the engines' shared step lock and with a null
+lock in its place, in turn, ROUNDS times each.  ``--mesh`` runs only phases 1, 2 and 8; ``--verify``
 only phases 1, 2 and 9, with every fast seed, the depth-1 schedule, the
 hotspot and the wide schedule.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -182,6 +199,10 @@ SEED = 20261017
 SLICE_GROUPS, REPLICAS, TABLE_CAP = 8192, 3, 1024
 PARITY_GROUPS, CPU_GROUPS, PARITY_STEPS = 1024, 64, 40
 WINDOW_STEPS, SETTLE_STEPS = 200, 8
+# phase 5's eager-against-graphed check: lockstep steps per arm, timed
+# steps per arm (two interleaved windows), profiled steps per arm, and the
+# latency and storm windows
+GRAPH_STEPS, GRAPH_TIMED, GRAPH_PROFILED, GRAPH_WINDOW = 20, 20, 3, 10
 # phase 6, the bench loops at bench.py's defaults on a device: 8192
 # groups, write width = proposal_cap (32), A2 and B 100 steps (max(40,
 # 200 // 2)), chunk 3 (max(2, min(25, 25 * 1024 // 8192))), the wave's
@@ -241,7 +262,7 @@ MESH_ELECT_MAX, MESH_SETTLE, MESH_DEPTH1_SHARDS = 400, 6, 64
 # while over the limit
 VERIFY_SEEDS = (1, 7, 9, 13, 25)
 CHAOS_TIME_SCALE, REF_IDLE_STEP_US = 10.0, 15_000
-MC_TAP_EVERY, PROBE_SEED = 23, 41
+MC_TAP_EVERY, PROBE_SEED, PROBE_IDLE_S = 23, 41, 8.0
 WIDE_SHARDS, WIDE_WRITES, WIDE_SEED, WIDE_STEP_S, WIDE_LIMIT_S = 1024, 2, 7, 1.0, 180.0
 # the entry of each kernel that the main path launches
 MAIN_PATH_ENTRIES = ("commit_quorum", "gather_lanes_multi", "kv_apply")
@@ -939,6 +960,7 @@ def phase_slice(torch, dev) -> dict:
     from dragonboat_tpu_torch import kernels
     from dragonboat_tpu_torch.core import params as KP
 
+    _graph_slice(torch, dev)
     N, R, T = SLICE_GROUPS, REPLICAS, TABLE_CAP
     kp = bl.sm_params(R, dev)
     torch.cuda.synchronize()
@@ -1035,6 +1057,170 @@ def phase_slice(torch, dev) -> dict:
     return launches
 
 
+def _same(torch, a, b) -> list[int]:
+    """Indexes of the leaves of two trees that differ (value, dtype or
+    shape), compared on the device; a different leaf count is [-1]."""
+    from dragonboat_tpu_torch import graphs
+
+    la, lb = graphs.leaves_of(a), graphs.leaves_of(b)
+    if len(la) != len(lb):
+        return [-1]
+    return [i for i, (x, y) in enumerate(zip(la, lb))
+            if x.dtype != y.dtype or not torch.equal(x, y)]
+
+
+def _kernel_device_us(prof) -> dict:
+    """Mean device us of each hand kernel's launches in a profile."""
+    out = {}
+    for ev in prof.key_averages():
+        for name, key in (("quorum_match", "quorum"), ("gather_lanes", "gather_lanes"),
+                          ("kv_apply", "kv_apply")):
+            if key in ev.key and ev.count:
+                t = getattr(ev, "self_device_time_total", None)
+                if t is None:
+                    t = getattr(ev, "self_cuda_time_total", 0)
+                if t > 0:
+                    out[name] = t / ev.count
+    return out
+
+
+def _graph_slice(torch, dev) -> dict:
+    """Phase 5's step eager (``graphs.eager()``) against graphed: from one
+    elected 8192 x 3 device-SM state, GRAPH_STEPS full_step_sm steps on
+    each arm in lockstep, every state, box, table and output leaf equal
+    after every step; one capture for the geometry (taken under CUDA's
+    sync debug mode "error"); K1, K2 and K3 launches per graphed step
+    counted through replays; step ms of each arm (interleaved windows),
+    torch.profiler's device-busy share and each kernel's in-graph device
+    time, peak memory of each arm; then a latency-loop and a storm window
+    graphed against eager (the clock and the draw counter are graph
+    inputs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dragonboat_tpu_torch import bench_loop as bl
+    from dragonboat_tpu_torch import graphs, kernels
+
+    N, R, T = SLICE_GROUPS, REPLICAS, TABLE_CAP
+    t0 = time.perf_counter()
+    kp = bl.sm_params(R, dev)
+    state, box = bl.elect_all(kp, R, bl.make_cluster(kp, N, R, device=dev))
+    kv, kv_state = bl.make_device_sm(N, R, T, device=dev)
+    entry = bl.full_step_sm
+    arms = {a: graphs.fresh((state, box, kv_state)) for a in ("eager", "graphed")}
+    launched = {a: dict.fromkeys(kernels.launches, 0) for a in arms}
+    peak = {}
+    bad = []
+
+    def one(arm, strict=False):
+        st, bx, kvs = arms[arm]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        with contextlib.ExitStack() as stack:
+            if arm == "eager":
+                stack.enter_context(graphs.eager())
+            if strict:
+                # the capture: any host sync in it raises
+                torch.cuda.set_sync_debug_mode("error")
+                stack.callback(torch.cuda.set_sync_debug_mode, "default")
+            res = entry(kp, R, kv, st, bx, kvs, True, True)
+        torch.cuda.synchronize()
+        for k, v in kernels.launches.items():
+            launched[arm][k] += v
+        arms[arm] = res[:3]
+        return res
+
+    graphs.clear()
+    calls, uncount = _count_steps(regraph=False)
+    try:
+        size0 = entry._cache_size()
+        for i in range(GRAPH_STEPS):
+            if i == 0:
+                torch.cuda.reset_peak_memory_stats()
+                g = one("graphed", strict=True)
+                peak["capture"] = torch.cuda.max_memory_allocated()
+            else:
+                g = one("graphed")
+            e = one("eager")
+            diff = _same(torch, e, g)
+            if diff:
+                bad.append((i, diff[:6]))
+        captures = entry._cache_size() - size0
+        gl = dict(launched["graphed"])
+    finally:
+        uncount()
+    steps_graphed = calls["step"] - GRAPH_STEPS
+    ms = {"eager": [], "graphed": []}
+    for _ in range(2):
+        for arm in ("eager", "graphed"):
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(GRAPH_TIMED // 2):
+                a = time.perf_counter()
+                one(arm)
+                ms[arm].append((time.perf_counter() - a) * 1e3)
+            peak[arm] = max(peak.get(arm, 0), torch.cuda.max_memory_allocated())
+    # device busy share: the profiler's device ms per step over the
+    # unprofiled step ms of the timed windows (the profiler slows the
+    # host, most of all the eager arm's ~10k launches a step)
+    busy, kernel_us = {}, {}
+    for arm in ("eager", "graphed"):
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        with prof:
+            for _ in range(GRAPH_PROFILED):
+                one(arm)
+        dev_ms = _device_busy(prof)["device_busy_s"] * 1e3 / GRAPH_PROFILED
+        busy[arm] = {"device_ms_per_step": dev_ms,
+                     "busy_share": dev_ms / statistics.median(ms[arm])}
+        kernel_us[arm] = _kernel_device_us(prof)
+    # a latency window and a storm window: clock and draw counter in graph
+    G = N * R
+    lat_args = (kp, R, GRAPH_WINDOW, LOOP_WW, True, True, True, 3, state, box)
+    with graphs.eager():
+        lat_e = bl.run_steps_lat(*lat_args, *bl.lat_init(kp, G, device=dev))
+    lat_g = bl.run_steps_lat(*lat_args, *bl.lat_init(kp, G, device=dev))
+    storm_args = (kp, R, GRAPH_WINDOW, STORM_DROP, STORM_SEED, state, box)
+    with graphs.eager():
+        storm_e = bl.run_steps_storm(*storm_args)
+    storm_g = bl.run_steps_storm(*storm_args)
+    lat_bad, storm_bad = _same(torch, lat_e, lat_g), _same(torch, storm_e, storm_g)
+    released = int(lat_g[3].sum())
+    graphs.clear()
+    per_step = _k1_calls_per_step(kp)
+    out = {"groups": N, "replicas": R, "steps_each_arm": GRAPH_STEPS,
+           "leaf_mismatches": json.dumps(bad[:4]), "captures": captures,
+           "graphed_steps_counted": steps_graphed,
+           "graphed_launches": json.dumps(gl, separators=(",", ":")),
+           "k1_per_step": per_step,
+           "eager_step_ms": statistics.median(ms["eager"]),
+           "graphed_step_ms": statistics.median(ms["graphed"]),
+           "eager_over_graphed": statistics.median(ms["eager"])
+           / statistics.median(ms["graphed"]),
+           "step_ms_windows": json.dumps({a: [round(x, 3) for x in v]
+                                          for a, v in ms.items()}),
+           "eager_device_ms_per_step": busy["eager"]["device_ms_per_step"],
+           "graphed_device_ms_per_step": busy["graphed"]["device_ms_per_step"],
+           "eager_busy_share": busy["eager"]["busy_share"],
+           "graphed_busy_share": busy["graphed"]["busy_share"],
+           "kernel_device_us": json.dumps(kernel_us, separators=(",", ":")),
+           "eager_peak_bytes": peak["eager"], "graphed_peak_bytes": peak["graphed"],
+           "capture_peak_bytes": peak["capture"],
+           "latency_window_steps": GRAPH_WINDOW, "latency_released": released,
+           "latency_leaf_mismatches": json.dumps(lat_bad),
+           "storm_window_steps": GRAPH_WINDOW,
+           "storm_leaf_mismatches": json.dumps(storm_bad),
+           "seconds": time.perf_counter() - t0}
+    say("graph_slice", **out)
+    check(not bad, f"graph_slice: graphed != eager at steps {bad[:4]}")
+    check(captures == 1, f"graph_slice: {captures} captures for one geometry")
+    check(steps_graphed == GRAPH_STEPS, f"graph_slice: {steps_graphed} graphed steps counted")
+    check(gl["quorum_match"] == per_step * GRAPH_STEPS
+          and gl["gather_lanes"] == K2_PER_ROUTE * GRAPH_STEPS
+          and gl["kv_apply"] == GRAPH_STEPS,
+          f"graph_slice: launches {gl} over {GRAPH_STEPS} replays")
+    check(not lat_bad and released > 0, f"graph_slice: latency window differs {lat_bad}")
+    check(not storm_bad, f"graph_slice: storm window differs {storm_bad}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the rest of bench_loop at bench.py's shapes
 # ---------------------------------------------------------------------------
@@ -1082,32 +1268,51 @@ def _sync_pass(torch, fn, steps: int) -> dict:
             "sync_sites": json.dumps(dict(sites), separators=(",", ":"))}
 
 
-def _count_calls(module, attr: str, counts: dict, thread: int | None = None):
+def _count_calls(module, attr: str, counts: dict, thread: int | None = None,
+                 regraph: bool = True):
     """Count the calls of ``module.attr`` (a function its callers look up
     there) in ``counts[attr]``, only those made in ``thread`` when one is
-    given; returns the function that takes the counter out."""
+    given; returns the function that takes the counter out.  A call inside
+    a compiled entry's graph counts at every replay (``graphs.tally``).
+    With ``regraph`` the module-level graphs are dropped when the counter
+    goes in and when it comes out, so the graphs replayed in between are
+    captured with it."""
     import threading
+
+    from dragonboat_tpu_torch import graphs
 
     orig = getattr(module, attr)
     counts[attr] = 0
 
+    def bump():
+        counts[attr] += 1
+
     def counted(*args, **kw):
         if thread is None or threading.get_ident() == thread:
-            counts[attr] += 1
+            graphs.tally(bump)
         return orig(*args, **kw)
 
+    if regraph:
+        graphs.clear()
     setattr(module, attr, counted)
-    return lambda: setattr(module, attr, orig)
+
+    def undo():
+        setattr(module, attr, orig)
+        if regraph:
+            graphs.clear()
+
+    return undo
 
 
-def _count_steps():
+def _count_steps(regraph: bool = True):
     """Count the steps and routes the bench loops call (``bench_loop``'s
     ``step`` and ``route``); returns the live counts and the function that
     takes the counters out."""
     from dragonboat_tpu_torch import bench_loop as bl
 
     counts: dict = {}
-    undo = [_count_calls(bl, attr, counts) for attr in ("step", "route")]
+    undo = [_count_calls(bl, attr, counts, regraph=regraph)
+            for attr in ("step", "route")]
     return counts, lambda: [u() for u in undo]
 
 
@@ -1128,7 +1333,8 @@ def _k1_calls_per_step(kp) -> int:
     ids = np.arange(1, P + 1, dtype=np.int32)
     st = init_state(kp, P, ids, ids, device="cpu")
     counts: dict = {}
-    uncount = _count_calls(K, "commit_quorum", counts, threading.get_ident())
+    uncount = _count_calls(K, "commit_quorum", counts, threading.get_ident(),
+                           regraph=False)
     try:
         K.step(kp, st, empty_inbox(kp, P, "cpu"), empty_input(kp, P, "cpu"))
     finally:
@@ -1751,17 +1957,32 @@ def _tap(module, attr: str, every: int):
     core/invariants, K2's ``gather_lanes_multi`` in core/router), through a
     tap that counts every call and clones the inputs of every
     ``every``-th call (up to TAP_KEEP) before it launches; returns the
-    tap's record and the function that takes the tap out."""
+    tap's record and the function that takes the tap out.  In a graph
+    the call's inputs are copied inside the graph, and every replay counts
+    the call and clones that copy when its turn comes; the module-level
+    graphs are dropped when the tap goes in and when it comes out."""
+    from dragonboat_tpu_torch import graphs
+
     orig, rec = getattr(module, attr), {"calls": 0, "inputs": []}
 
-    def tap(*args):
+    def record(args):
         rec["calls"] += 1
         if (rec["calls"] - 1) % every == 0 and len(rec["inputs"]) < TAP_KEEP:
             rec["inputs"].append(_clone(args))
+
+    def tap(*args):
+        held = _clone(args) if graphs.capturing() else args
+        graphs.tally(lambda: record(held))
         return orig(*args)
 
+    graphs.clear()
     setattr(module, attr, tap)
-    return rec, lambda: setattr(module, attr, orig)
+
+    def untap():
+        setattr(module, attr, orig)
+        graphs.clear()
+
+    return rec, untap
 
 
 def _tapped(torch, taps, key: str, kernel: str = "quorum_match") -> dict:
@@ -1816,6 +2037,57 @@ def _tick_stats(store: dict) -> dict:
         out[f"{short}_host_ms_p50"] = float(np.percentile(ms, 50)) if ms else None
         out[f"{short}_host_ms_p90"] = float(np.percentile(ms, 90)) if ms else None
     return out
+
+
+SPANS = ("kernel_engine.stage", "kernel_engine.step",
+         "kernel_engine.process_outputs")
+
+
+def _time_spans(store: dict):
+    """Time the engines' step phases: every ``annotate`` range of
+    KernelEngine.step_all (staging; copy-in and replay or the eager step;
+    the output pass), host ms of each into ``store``; returns the
+    function that takes the timer out."""
+    import contextlib
+
+    from dragonboat_tpu_torch.engine import kernel_engine as ke
+
+    orig = ke.annotate
+
+    @contextlib.contextmanager
+    def timed(name):
+        t = time.perf_counter()
+        try:
+            with orig(name):
+                yield
+        finally:
+            store.setdefault(name, []).append((time.perf_counter() - t) * 1e3)
+
+    ke.annotate = timed
+    return lambda: setattr(ke, "annotate", orig)
+
+
+def _span_stats(store: dict) -> dict:
+    """Per step phase (staging; the step: copy-in and replay, or the eager
+    body; the output pass): calls, median and mean host ms."""
+    out = {}
+    for name, short in zip(SPANS, ("stage", "dispatch", "outputs")):
+        ms = store.get(name, [])
+        out[f"{short}_calls"] = len(ms)
+        out[f"{short}_host_ms_p50"] = float(np.percentile(ms, 50)) if ms else None
+        out[f"{short}_host_ms_mean"] = float(np.mean(ms)) if ms else None
+    return out
+
+
+class _NullLock:
+    """KernelEngine._step_mu's stand-in for a run without the engines'
+    turns (``--compare-turns``)."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        return None
 
 
 def _scrape(addr: str, path: str):
@@ -2100,11 +2372,14 @@ def _nh_profile(torch, hosts, shards) -> dict:
 
     KernelEngine._step_mu = timed_mu
     eng.step_all = timed
+    spans: dict = {}
+    unspan = _time_spans(spans)
     t0 = time.perf_counter()
     try:
         rounds = [_nh_write_round(hosts, leaders, f"p{i}") for i in range(3)]
         writes, acked = (sum(x) for x in zip(*rounds))
     finally:
+        unspan()
         del eng.step_all
         KernelEngine._step_mu = step_mu
     wall = sum(walls)
@@ -2112,7 +2387,8 @@ def _nh_profile(torch, hosts, shards) -> dict:
            "split_window_s": time.perf_counter() - t0,
            "split_steps": len(walls), "step_wall_s": wall,
            "step_lock_wait_s": sum(waits), "step_thread_cpu_s": sum(cpus),
-           "step_other_wait_s": wall - sum(waits) - sum(cpus)}
+           "step_other_wait_s": wall - sum(waits) - sum(cpus),
+           **{f"graphed_{k}": v for k, v in _span_stats(spans).items()}}
 
     timers = [nh.kernel_engine._step_timer.samples for nh in hosts.values()]
     n0 = sum(len(t) for t in timers)
@@ -2189,12 +2465,41 @@ def _nh_parity_run(dev, tag, mesh=False) -> list:
 
 
 def _nh_cell(torch, dev, tag, one_worker=False, reductions=True,
-             full=False) -> dict:
+             full=False, eager=False, turns=True) -> dict:
     """The NodeHost cell at NH_SHARDS x 3: admit, elect, write, read
-    back; launch counts (split into K1's call sites), peak memory and the
-    decimated ticks' host ms over it alone.  ``full`` adds, after the
-    counts are read, the K1 taps' comparison, the endpoint checks, the
-    reductions card against CPU, their cost alone and the profile."""
+    back; launch counts (split into K1's call sites), peak memory, the
+    decimated ticks' and the step phases' host ms over it alone.
+    ``full`` adds, after the counts are read, the K1 taps' comparison, the
+    endpoint checks, the reductions card against CPU, their cost alone
+    and the profile.  ``eager`` runs the engines' eager bodies
+    (``graphs.eager()``); ``turns=False`` swaps the engines' shared step
+    lock for a null lock."""
+    from dragonboat_tpu_torch import graphs
+
+    with contextlib.ExitStack() as stack:
+        if eager:
+            stack.enter_context(graphs.eager())
+        if not turns:
+            stack.enter_context(_step_lock(_NullLock()))
+        out = _nh_cell_run(torch, dev, tag, one_worker, reductions, full)
+    out.update(steps="eager" if eager else "graphed",
+               turns="shared step lock" if turns else "none")
+    return out
+
+
+@contextlib.contextmanager
+def _step_lock(lock):
+    from dragonboat_tpu_torch.engine.kernel_engine import KernelEngine
+
+    saved = KernelEngine._step_mu
+    KernelEngine._step_mu = lock
+    try:
+        yield
+    finally:
+        KernelEngine._step_mu = saved
+
+
+def _nh_cell_run(torch, dev, tag, one_worker, reductions, full) -> dict:
     from dragonboat_tpu_torch import kernels
     from dragonboat_tpu_torch.core import invariants as inv
     from dragonboat_tpu_torch.core import kernel as K
@@ -2212,6 +2517,8 @@ def _nh_cell(torch, dev, tag, one_worker=False, reductions=True,
     uncount = [_count_calls(kernel_engine, attr, engine_steps)
                for attr in ("kernel_step", "kernel_step_donated")]
     untime = _time_ticks(ticks)
+    spans: dict = {}
+    unspan = _time_spans(spans)
 
     def restore():
         untap_step()
@@ -2219,6 +2526,7 @@ def _nh_cell(torch, dev, tag, one_worker=False, reductions=True,
         for u in uncount:
             u()
         untime()
+        unspan()
 
     extra = {}
     try:
@@ -2233,6 +2541,7 @@ def _nh_cell(torch, dev, tag, one_worker=False, reductions=True,
                 calls = (step_tap["calls"], probe_tap["calls"],
                          sum(engine_steps.values()))
                 tick_stats = _tick_stats(ticks)
+                span_stats = _span_stats(spans)
                 peak = torch.cuda.max_memory_allocated()
             finally:
                 restore()
@@ -2251,7 +2560,7 @@ def _nh_cell(torch, dev, tag, one_worker=False, reductions=True,
         restore()
     return {"engine": "one step worker" if one_worker else "EngineConfig()",
             "reductions": "on" if reductions else "off",
-            "admit_s": admit_s, **st, **tick_stats,
+            "admit_s": admit_s, **st, **tick_stats, **span_stats,
             "k1_launches": launches["quorum_match"],
             "k1_step_calls": calls[0], "k1_probe_calls": calls[1],
             "engine_steps": calls[2], "k1_per_engine_step": k1_per_step,
@@ -2298,8 +2607,6 @@ def phase_nodehost(torch, dev, smi: str) -> int:
     say("nodehost_reductions", card_vs_cpu="equal", **extra["reductions"])
     say("nodehost_reduction_cost", **extra["cost"], card=json.dumps(smi))
     prof = extra["profile"]
-    say("nodehost_profile", **{k: json.dumps(v) if isinstance(v, list) else v
-                               for k, v in prof.items()})
     check(st["acked"] == NH_SHARDS * NH_WRITES, "not every write acknowledged")
     check(st["k1_step_calls"] > 0, "K1 was not launched by the engine's step")
     check(st["k1_probe_calls"] > 0, "K1 was not launched by the invariant probe")
@@ -2312,6 +2619,21 @@ def phase_nodehost(torch, dev, smi: str) -> int:
         check(extra["k1"][key] == 0, f"K1 disagrees with its plain arm ({key})")
     check(prof["acked"] == prof["writes"], "profiled writes not all acknowledged")
     k1 = st["k1_launches"]
+
+    # the same cell with the engines' eager bodies, in this call
+    ea = _nh_cell(torch, dev, f"{tag}e", eager=True)
+    ea.pop("extra")
+    say("nodehost_eager", shards=NH_SHARDS, replicas=3, hosts=3, **ea,
+        graphed_step_ms_p50=st["step_ms_p50"], graphed_step_ms_p90=st["step_ms_p90"],
+        card=json.dumps(smi))
+    check(ea["acked"] == NH_SHARDS * NH_WRITES, "eager cell: not every write acknowledged")
+    check(ea["k1_step_calls"] == ea["k1_per_engine_step"] * ea["engine_steps"],
+          "eager cell: K1 launches are not 21 an engine step")
+    # the host ms of the engine step's phases: the graphed cell's profile
+    # rounds, and the whole eager cell
+    prof.update({f"eager_{k}": ea[k] for k in _span_stats({})})
+    say("nodehost_profile", **{k: json.dumps(v) if isinstance(v, list) else v
+                               for k, v in prof.items()})
 
     t1 = time.perf_counter()
     hosts = _nh_hosts(f"{tag}d1", NH_DEPTH1_SHARDS, dev, depth=1)
@@ -2700,6 +3022,30 @@ def _mesh_depth1(dev, tag) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def _mesh_eager(dev, tag) -> dict:
+    """The mesh NodeHost cell's serve (elect, NH_WRITES writes a shard,
+    read back) with the engine's eager bodies (``graphs.eager()``): engine
+    step p50/p90 and the step phases' host ms."""
+    from dragonboat_tpu_torch import graphs
+
+    t0 = time.perf_counter()
+    spans: dict = {}
+    unspan = _time_spans(spans)
+    try:
+        with graphs.eager():
+            hosts = _nh_hosts(tag, MESH_GROUPS, dev, mesh=True)
+            try:
+                st = _nh_serve(hosts, MESH_GROUPS)
+            finally:
+                _nh_close(hosts)
+    finally:
+        unspan()
+    check(st["acked"] == MESH_GROUPS * NH_WRITES,
+          "mesh eager cell: not every write acknowledged")
+    return {"shards": MESH_GROUPS, "steps": "eager", **st, **_span_stats(spans),
+            "seconds": time.perf_counter() - t0}
+
+
 def _mesh_rows(torch, k1_inputs, k2_inputs, launches,
                path: str = "mesh") -> list[dict]:
     """The kernels line's rows for a path (the mesh cell's by default):
@@ -2758,6 +3104,9 @@ def phase_mesh(torch, dev, smi: str) -> list[dict]:
     cell = _mesh_cell(torch, dev, f"msh{time.monotonic_ns()}")
     taps, launches = cell.pop("_taps"), cell.pop("_launches")
     say("mesh_nodehost", **cell, card=json.dumps(smi))
+    ea = _mesh_eager(dev, f"msh{time.monotonic_ns()}e")
+    say("mesh_eager", **ea, graphed_step_ms_p50=cell["step_ms_p50"],
+        graphed_step_ms_p90=cell["step_ms_p90"], card=json.dumps(smi))
     d1 = _mesh_depth1(dev, f"msh{time.monotonic_ns()}d1")
     say("mesh_depth1", **d1)
     say("mesh_nodehost_parity", mesh="(g=1, r=3), one group",
@@ -2970,10 +3319,24 @@ def _verify_probe(torch, dev) -> dict:
                 break
         rid, snap = max(seen.items(), key=lambda kv: kv[1]["violations_seen"])
         nh = cluster.hosts[rid]
+
+        def ewmas():
+            return [int(cluster.hosts[r].events.metrics.snapshot().get(
+                "engine.kernel_step.ewma_us", 0)) for r in cluster.live_rids()]
+
         # the engine step's latency EWMA on each host, at the load of
-        # one write at a time (CHAOS_TIME_SCALE's reason)
-        ewma = [int(cluster.hosts[r].events.metrics.snapshot().get(
-            "engine.kernel_step.ewma_us", 0)) for r in cluster.live_rids()]
+        # one write at a time (CHAOS_TIME_SCALE's reason), then after
+        # PROBE_IDLE_S of idle ticking, when the first steps' captures
+        # have decayed out of it
+        ewma = ewmas()
+        idle0 = [len(cluster.hosts[r].kernel_engine._step_timer.samples)
+                 for r in cluster.live_rids()]
+        time.sleep(PROBE_IDLE_S)
+        idle_ewma = ewmas()
+        idle_steps = [len(cluster.hosts[r].kernel_engine._step_timer.samples) - n
+                      for r, n in zip(cluster.live_rids(), idle0)]
+        idle_ms = [x / 1e3 for r in cluster.live_rids()
+                   for x in list(cluster.hosts[r].kernel_engine._step_timer.samples)[-10:]]
         edges = [r for r in flight.RECORDER.tail(512)
                  if r.get("kind") == flight.INVARIANT_VIOLATION and r["seq"] >= seq0]
         server = MetricsServer([nh.events.metrics.registry],
@@ -2990,11 +3353,14 @@ def _verify_probe(torch, dev) -> dict:
            "violations_seen": snap["violations_seen"],
            "flight_edges": len(edges), "tripped": json.dumps(tripped),
            "healthz": status, "step_ewma_us": json.dumps(ewma),
+           "idle_s": PROBE_IDLE_S, "idle_steps": json.dumps(idle_steps),
+           "idle_step_ewma_us": json.dumps(idle_ewma),
+           "idle_step_ms_p50": float(np.percentile(idle_ms, 50)),
            "ref_idle_step_us": REF_IDLE_STEP_US,
            "seconds": time.perf_counter() - t0}
     check(snap["violations_seen"] > 0, f"probe: no violation seen {snap}")
-    check(min(ewma) > REF_IDLE_STEP_US,
-          f"probe: the engine step's EWMA {ewma} us is down to the "
+    check(min(idle_ewma) > REF_IDLE_STEP_US,
+          f"probe: the idle engine step's EWMA {idle_ewma} us is down to the "
           f"reference's idle {REF_IDLE_STEP_US} us: run the chaos runner "
           "at time_scale 1.0 and remove the knob (ROADMAP item 17)")
     check(edges, "probe: no invariant_violation flight record")
@@ -3171,6 +3537,23 @@ def compare_workers(torch, dev, rounds: int) -> int:
     return 0
 
 
+def compare_turns(torch, dev, rounds: int) -> int:
+    """``python3 chip_smoke.py --compare-turns [ROUNDS]``: the NodeHost
+    cell graphed with the engines' shared step lock
+    (``KernelEngine._step_mu``) and with a null lock in its place, in
+    turn, ROUNDS times each (1 unless given), one line per run with every
+    check of the cell.  Not part of the default run."""
+    tag = f"cmt{time.monotonic_ns()}"
+    for i, on in enumerate((True, False) * rounds):
+        st = _nh_cell(torch, dev, f"{tag}-{i}", turns=on)
+        st.pop("extra")
+        say("nodehost_turns", run=i, **st)
+        check(st["acked"] == NH_SHARDS * NH_WRITES, "not every write acknowledged")
+        check(st["k1_step_calls"] == st["k1_per_engine_step"] * st["engine_steps"],
+              "K1 launches are not 21 an engine step")
+    return 0
+
+
 def compare_reductions(torch, dev, rounds: int) -> int:
     """``python3 chip_smoke.py --compare-reductions [ROUNDS]``: the
     NodeHost cell with the three reductions on (the default ExpertConfig)
@@ -3209,6 +3592,8 @@ def main() -> int:
         return compare_workers(torch, dev, int((sys.argv[2:] or ["2"])[0]))
     if sys.argv[1:2] == ["--compare-reductions"]:
         return compare_reductions(torch, dev, int((sys.argv[2:] or ["2"])[0]))
+    if sys.argv[1:2] == ["--compare-turns"]:
+        return compare_turns(torch, dev, int((sys.argv[2:] or ["1"])[0]))
     if sys.argv[1:2] == ["--mesh"]:
         phase_mesh(torch, dev, device["nvidia_smi"])
         return 0

@@ -11,12 +11,19 @@ cursor trailing the processed cursor, and the logical clock.
 ``full_step_sm`` adds the device state machine: the apply window the step
 releases is applied to a ``DeviceKV`` on every replica through K3.
 
-PyTorch runs eagerly, so the reference's ``fori_loop``s are Python loops
-here, and its pipelined loops, whose bodies fuse two steps for XLA, are
-the serial loops at twice the count.  The carries stay tensors on the
-state's device (0-d int32 for the counters) and the clock ``now`` is a
-Python int, so nothing in the loops reads the device from the host except
-``elect_all``'s convergence check.
+The reference jits each loop whole (a ``fori_loop`` under ``jax.jit``).
+Here each loop replays one compiled step body (``dragonboat_tpu_torch
+.graphs``) ``iters`` times: on the card the body is captured once per
+geometry as a CUDA graph, on the CPU it runs eagerly.  The bodies donate
+their carries, so a loop passes the graph's own buffers back and pays no
+copy; a loop returns its results copied out of the graph (``graphs
+.fresh``), so they outlive the next call as the reference's do.  The
+pipelined loops, whose bodies fuse two steps for XLA, are the serial
+loops at twice the count.  The carries stay tensors on the state's device
+(0-d int32 for the counters, 0-d int64 for the clock ``now`` and the
+storm's draw counter, advanced inside the graph), so no value that
+changes from step to step is baked into a graph, and nothing in the loops
+reads the device from the host except ``elect_all``'s convergence check.
 
 The storm's message drops cannot be the reference's threefry bits.  The
 port draws its own from ``storm_keep``, a counter-based hash of (seed,
@@ -31,6 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from dragonboat_tpu_torch import graphs
 from dragonboat_tpu_torch.core import params as KP
 from dragonboat_tpu_torch.core.kernel import step
 from dragonboat_tpu_torch.core.kstate import (
@@ -46,6 +54,12 @@ from dragonboat_tpu_torch.rsm.device_kv import DeviceKV
 from dragonboat_tpu_torch.rsm.device_kv_kernels import apply_window
 
 I32 = torch.int32
+I64 = torch.int64
+
+
+def _clock(now0: int, state: ShardState) -> torch.Tensor:
+    """The loop clock as a 0-d int64 tensor on the state's device."""
+    return torch.full((), int(now0), dtype=I64, device=state.term.device)
 
 
 def bench_params(replicas: int = 3, device=None) -> KP.KernelParams:
@@ -84,10 +98,11 @@ def make_cluster(kp: KP.KernelParams, num_groups: int, replicas: int = 3,
 
 def _self_input(kp: KP.KernelParams, state: ShardState, tick: bool,
                 propose: bool, write_width: int | None, do_reads: bool,
-                now: int) -> StepInput:
+                now) -> StepInput:
     """The self-driving feedback input: propose on leaders (first
     ``write_width`` lanes, or all), optionally one batched ReadIndex per
-    leader, instant-apply cursor, logical clock tick."""
+    leader, instant-apply cursor, logical clock tick.  ``now`` (the
+    ReadIndex ctx) is a Python int or a 0-d tensor."""
     G, B = state.term.shape[0], kp.proposal_cap
     dev = state.term.device
     is_leader = state.role == KP.LEADER
@@ -99,7 +114,10 @@ def _self_input(kp: KP.KernelParams, state: ShardState, tick: bool,
     # own index, so any replica can verify lv[slot(i)] == i
     pval = state.last[:, None] + 1 + lanes[None, :]
     ri = is_leader & bool(do_reads) & bool(propose)
-    ctx = torch.full((G,), int(now) & 0x7FFFFFFF, dtype=I32, device=dev)
+    if isinstance(now, torch.Tensor):
+        ctx = torch.zeros((G,), dtype=I32, device=dev) + (now & 0x7FFFFFFF).to(I32)
+    else:
+        ctx = torch.full((G,), int(now) & 0x7FFFFFFF, dtype=I32, device=dev)
     return StepInput(
         prop_valid=pv.contiguous(),
         prop_cc=torch.zeros((G, B), dtype=torch.bool, device=dev),
@@ -122,16 +140,26 @@ def full_step(kp: KP.KernelParams, replicas: int, state: ShardState,
     return state, route(kp, replicas, out), out
 
 
+def _run_body(kp: KP.KernelParams, replicas: int, tick: bool, propose: bool,
+              state: ShardState, box: Inbox):
+    state, box, _ = full_step(kp, replicas, state, box, tick, propose)
+    return state, box
+
+
+_run = graphs.compiled(_run_body, static_argnums=(0, 1, 2, 3),
+                       donate_argnums=(4, 5))
+
+
 def run_steps(kp: KP.KernelParams, replicas: int, iters: int,
               tick: bool, propose: bool, state: ShardState, box: Inbox):
     """``iters`` self-driving steps; returns (state, box)."""
     for _ in range(iters):
-        state, box, _ = full_step(kp, replicas, state, box, tick, propose)
-    return state, box
+        state, box = _run(kp, replicas, bool(tick), bool(propose), state, box)
+    return graphs.fresh((state, box))
 
 
-def cc_step(kp: KP.KernelParams, replicas: int, state: ShardState,
-            box: Inbox):
+def _cc_step(kp: KP.KernelParams, replicas: int, state: ShardState,
+             box: Inbox):
     """One step of the membership-change wave: every leader proposes a
     config-change entry in lane 0 beside its write batch (the kernel
     keeps one CC in flight per group; the caller plays the engine and
@@ -143,6 +171,10 @@ def cc_step(kp: KP.KernelParams, replicas: int, state: ShardState,
     state, out = step(kp, state, box, inp._replace(prop_cc=prop_cc))
     return (state, route(kp, replicas, out),
             out.prop_accepted[:, 0], out.prop_index[:, 0])
+
+
+#: the membership wave's step (the reference's jitted ``cc_step``)
+cc_step = graphs.compiled(_cc_step, static_argnums=(0, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -168,12 +200,23 @@ def run_steps_mixed(kp: KP.KernelParams, replicas: int, iters: int,
     ``write_width`` lanes, one batched ReadIndex ctx per leader per step
     with ctx ``now0 + i``; ``reads`` (0-d int32) counts completed ctxs.
     Returns (state, box, reads)."""
-    for i in range(iters):
-        inp = _self_input(kp, state, True, True, write_width, True, now0 + i)
-        state, out = step(kp, state, box, inp)
-        box = route(kp, replicas, out)
-        reads = reads + out.rtr_valid.sum(dtype=I32)
-    return state, box, reads
+    now = _clock(now0, state)
+    for _ in range(iters):
+        state, box, reads, now = _mixed(kp, replicas, write_width, state,
+                                        box, reads, now)
+    return graphs.fresh((state, box, reads))
+
+
+def _mixed_body(kp: KP.KernelParams, replicas: int, write_width: int,
+                state: ShardState, box: Inbox, reads, now):
+    inp = _self_input(kp, state, True, True, write_width, True, now)
+    state, out = step(kp, state, box, inp)
+    box = route(kp, replicas, out)
+    return state, box, reads + out.rtr_valid.sum(dtype=I32), now + 1
+
+
+_mixed = graphs.compiled(_mixed_body, static_argnums=(0, 1, 2),
+                         donate_argnums=(3, 4, 5, 6))
 
 
 def run_steps_mixed_pipelined(kp: KP.KernelParams, replicas: int, iters: int,
@@ -212,12 +255,9 @@ def _apply_released(kp: KP.KernelParams, kv: DeviceKV, kv_state: dict,
     return kv_state, (~ok & valid).sum(dtype=I32)
 
 
-def full_step_sm(kp: KP.KernelParams, replicas: int, kv: DeviceKV,
-                 state: ShardState, box: Inbox, kv_state: dict,
-                 tick: bool, propose: bool):
-    """``full_step`` plus the device state machine (``_apply_released``).
-    On the card ``kv_state`` is updated in place.  Returns (state, box,
-    kv_state, n_rejected, out)."""
+def _full_step_sm(kp: KP.KernelParams, replicas: int, kv: DeviceKV,
+                  state: ShardState, box: Inbox, kv_state: dict,
+                  tick: bool, propose: bool):
     if not kp.inline_payloads:
         raise ValueError("device-SM path needs sm_params()")
     state, box2, out = full_step(kp, replicas, state, box, tick, propose)
@@ -225,17 +265,39 @@ def full_step_sm(kp: KP.KernelParams, replicas: int, kv: DeviceKV,
     return state, box2, kv_state, n_rejected, out
 
 
+#: ``full_step`` plus the device state machine (``_apply_released``), a
+#: compiled entry that donates state, box and ``kv_state``: on the card
+#: the graph updates them in place in its static buffers (K3 writes the
+#: table in place), and every result stays valid until the next call.
+#: Returns (state, box, kv_state, n_rejected, out).
+full_step_sm = graphs.compiled(_full_step_sm, static_argnums=(0, 1, 2, 6, 7),
+                               donate_argnums=(3, 4, 5))
+
+
+def _sm_body(kp: KP.KernelParams, replicas: int, kv: DeviceKV, tick: bool,
+             propose: bool, state: ShardState, box: Inbox, kv_state: dict,
+             rej):
+    state, box, kv_state, r, _ = _full_step_sm(
+        kp, replicas, kv, state, box, kv_state, tick, propose)
+    return state, box, kv_state, rej + r
+
+
+_sm = graphs.compiled(_sm_body, static_argnums=(0, 1, 2, 3, 4),
+                      donate_argnums=(5, 6, 7, 8))
+
+
 def run_steps_sm(kp: KP.KernelParams, replicas: int, kv: DeviceKV,
                  iters: int, tick: bool, propose: bool, state: ShardState,
                  box: Inbox, kv_state: dict):
     """``iters`` device-SM steps; returns (state, box, kv_state, rejects)
-    with ``rejects`` a 0-d int32 tensor on the device."""
+    with ``rejects`` a 0-d int32 tensor on the device.  The caller's
+    ``kv_state`` is left as it was; the returned one is new."""
     rej = torch.zeros((), dtype=I32, device=state.term.device)
     for _ in range(iters):
-        state, box, kv_state, r, _ = full_step_sm(
-            kp, replicas, kv, state, box, kv_state, tick, propose)
-        rej = rej + r
-    return state, box, kv_state, rej
+        state, box, kv_state, rej = _sm(kp, replicas, kv, bool(tick),
+                                        bool(propose), state, box, kv_state,
+                                        rej)
+    return graphs.fresh((state, box, kv_state, rej))
 
 
 def wrap_i32(x: torch.Tensor) -> torch.Tensor:
@@ -257,37 +319,51 @@ def run_steps_mixed_sm(kp: KP.KernelParams, replicas: int, kv: DeviceKV,
     position, hashed slots their stored key.  ``reads`` counts served
     ctxs, ``acc`` folds the read values (an int32 sum that wraps),
     ``rejects`` the refused committed writes; all three are 0-d int32 and
-    accumulate across calls.  On the card ``kv_state`` is updated in
-    place.  Returns (state, box, kv_state, reads, acc, rejects)."""
+    accumulate across calls.  The caller's ``kv_state`` is left as it
+    was.  Returns (state, box, kv_state, reads, acc, rejects)."""
     if not kp.inline_payloads:
         raise ValueError("device-SM path needs sm_params()")
+    now = _clock(now0, state)
+    for _ in range(iters):
+        state, box, kv_state, reads, acc, rejects, now = _mixed_sm(
+            kp, replicas, kv, write_width, state, box, kv_state, reads, acc,
+            rejects, now)
+    return graphs.fresh((state, box, kv_state, reads, acc, rejects))
+
+
+def _mixed_sm_body(kp: KP.KernelParams, replicas: int, kv: DeviceKV,
+                   write_width: int, state: ShardState, box: Inbox,
+                   kv_state: dict, reads, acc, rejects, now):
     T = kv.table_cap
     KS = T // 2 if kv.hash_keys else T      # key space (as _apply_released)
     RB = 9 * write_width
     slots = torch.arange(T, dtype=I32, device=state.term.device)
-    for i in range(iters):
-        inp = _self_input(kp, state, True, True, write_width, True, now0 + i)
-        state, out = step(kp, state, box, inp)
-        box = route(kp, replicas, out)
-        kv_state, rej = _apply_released(kp, kv, kv_state, state, out)
-        rejects = rejects + rej
-        # read side: the newest confirmed ctx per lane, served only once
-        # the state machine has applied past its index (never stale)
-        rix = torch.where(out.rtr_valid, out.rtr_index, 0).amax(dim=1)
-        served = out.rtr_valid.any(dim=1) & (rix <= state.processed)
-        if kv.hash_keys:
-            # stored key (keys - 1; 0 = empty) against the served window,
-            # modulo the key space
-            keys = kv_state["keys"]
-            d = (rix[:, None] - 1 - (keys - 1)) & (KS - 1)
-            hit = (d < RB) & (keys > 0) & served[:, None]
-        else:
-            d = (rix[:, None] - 1 - slots[None, :]) & (T - 1)
-            hit = (d < RB) & served[:, None]
-        got = torch.where(hit, kv_state["vals"], 0).sum(dtype=torch.int64)
-        acc = wrap_i32(acc.to(torch.int64) + got)
-        reads = reads + served.sum(dtype=I32)
-    return state, box, kv_state, reads, acc, rejects
+    inp = _self_input(kp, state, True, True, write_width, True, now)
+    state, out = step(kp, state, box, inp)
+    box = route(kp, replicas, out)
+    kv_state, rej = _apply_released(kp, kv, kv_state, state, out)
+    rejects = rejects + rej
+    # read side: the newest confirmed ctx per lane, served only once
+    # the state machine has applied past its index (never stale)
+    rix = torch.where(out.rtr_valid, out.rtr_index, 0).amax(dim=1)
+    served = out.rtr_valid.any(dim=1) & (rix <= state.processed)
+    if kv.hash_keys:
+        # stored key (keys - 1; 0 = empty) against the served window,
+        # modulo the key space
+        keys = kv_state["keys"]
+        d = (rix[:, None] - 1 - (keys - 1)) & (KS - 1)
+        hit = (d < RB) & (keys > 0) & served[:, None]
+    else:
+        d = (rix[:, None] - 1 - slots[None, :]) & (T - 1)
+        hit = (d < RB) & served[:, None]
+    got = torch.where(hit, kv_state["vals"], 0).sum(dtype=torch.int64)
+    acc = wrap_i32(acc.to(torch.int64) + got)
+    reads = reads + served.sum(dtype=I32)
+    return state, box, kv_state, reads, acc, rejects, now + 1
+
+
+_mixed_sm = graphs.compiled(_mixed_sm_body, static_argnums=(0, 1, 2, 3),
+                            donate_argnums=(4, 5, 6, 7, 8, 9, 10))
 
 
 # ---------------------------------------------------------------------------
@@ -307,17 +383,21 @@ def lat_init(kp: KP.KernelParams, G: int, device=None):
             torch.zeros((), dtype=I32, device=dev))
 
 
-def _stamp_accepts(kp: KP.KernelParams, stamp, out, now: int):
-    """Stamp ``now`` into the ring slot of every accepted proposal.  The
+def _stamp_accepts(kp: KP.KernelParams, stamp, out, now):
+    """Stamp ``now`` (a Python int or a 0-d tensor) into the ring slot of
+    every accepted proposal.  The
     reference's [G, B, CAP] one-hot becomes a scatter-add of the accept
     flags; lanes that share a slot all write the same ``now``."""
     idx = (out.prop_index & (kp.log_cap - 1)).long()
     hits = torch.zeros_like(stamp).scatter_add_(
         1, idx, out.prop_accepted.to(I32))
+    if isinstance(now, torch.Tensor):
+        # a tensor fill value would be read on the host: select instead
+        return torch.where(hits > 0, now.to(I32), stamp)
     return stamp.masked_fill(hits > 0, now)
 
 
-def _bucket_releases(kp: KP.KernelParams, stamp, hist, out, now: int,
+def _bucket_releases(kp: KP.KernelParams, stamp, hist, out, now,
                      is_leader):
     """Add ``now - stamp`` (clipped to the last bucket) of every entry
     released on a leader row this step to the histogram; only leader rows
@@ -328,6 +408,8 @@ def _bucket_releases(kp: KP.KernelParams, stamp, hist, out, now: int,
     idx = out.apply_first[:, None] + lanes[None, :]
     valid = (idx <= out.apply_last[:, None]) & is_leader[:, None]
     st = torch.gather(stamp, 1, (idx & (CAP - 1)).long())
+    if isinstance(now, torch.Tensor):
+        now = now.to(I32)
     lat = (now - st).clamp(0, LAT_BUCKETS - 1)
     return hist.scatter_add(0, lat.reshape(-1).long(),
                             valid.reshape(-1).to(I32))
@@ -335,10 +417,10 @@ def _bucket_releases(kp: KP.KernelParams, stamp, hist, out, now: int,
 
 def full_step_lat(kp: KP.KernelParams, replicas: int, write_width: int,
                   do_reads: bool, state: ShardState, box: Inbox, tick: bool,
-                  propose: bool, now: int, stamp, hist, reads):
+                  propose: bool, now, stamp, hist, reads):
     """``full_step`` plus latency stamping and, with ``do_reads``, one
-    batched ReadIndex per leader; returns (state, box, stamp, hist,
-    reads)."""
+    batched ReadIndex per leader, at clock ``now`` (a Python int or a 0-d
+    tensor); returns (state, box, stamp, hist, reads)."""
     is_leader = state.role == KP.LEADER
     inp = _self_input(kp, state, tick, propose, write_width, do_reads, now)
     state, out = step(kp, state, box, inp)
@@ -349,16 +431,30 @@ def full_step_lat(kp: KP.KernelParams, replicas: int, write_width: int,
     return state, nxt, stamp, hist, reads
 
 
+def _lat_body(kp: KP.KernelParams, replicas: int, write_width: int,
+              do_reads: bool, tick: bool, propose: bool, advance: int,
+              state, box, stamp, hist, reads, now):
+    state, box, stamp, hist, reads = full_step_lat(
+        kp, replicas, write_width, do_reads, state, box, tick, propose, now,
+        stamp, hist, reads)
+    return state, box, stamp, hist, reads, now + advance
+
+
+_lat = graphs.compiled(_lat_body, static_argnums=(0, 1, 2, 3, 4, 5, 6),
+                       donate_argnums=(7, 8, 9, 10, 11, 12))
+
+
 def run_steps_lat(kp: KP.KernelParams, replicas: int, iters: int,
                   write_width: int, do_reads: bool, tick: bool, propose: bool,
                   now0: int, state, box, stamp, hist, reads):
     """``iters`` instrumented steps at clock ``now0 + i``; returns
     (state, box, stamp, hist, reads)."""
-    for i in range(iters):
-        state, box, stamp, hist, reads = full_step_lat(
-            kp, replicas, write_width, do_reads, state, box, tick, propose,
-            now0 + i, stamp, hist, reads)
-    return state, box, stamp, hist, reads
+    now = _clock(now0, state)
+    flags = (write_width, bool(do_reads), bool(tick), bool(propose))
+    for _ in range(iters):
+        state, box, stamp, hist, reads, now = _lat(
+            kp, replicas, *flags, 1, state, box, stamp, hist, reads, now)
+    return graphs.fresh((state, box, stamp, hist, reads))
 
 
 def run_steps_lat_pipelined(kp: KP.KernelParams, replicas: int, iters: int,
@@ -369,12 +465,14 @@ def run_steps_lat_pipelined(kp: KP.KernelParams, replicas: int, iters: int,
     stamp and bucket at ``now0 + i``, so the histogram counts pipeline
     steps.  Not equal to ``run_steps_lat`` by construction (the stamps
     differ); the uninstrumented pipelined loops are the bitwise ones."""
-    for i in range(iters):
-        for _ in (0, 1):
-            state, box, stamp, hist, reads = full_step_lat(
-                kp, replicas, write_width, do_reads, state, box, tick,
-                propose, now0 + i, stamp, hist, reads)
-    return state, box, stamp, hist, reads
+    now = _clock(now0, state)
+    flags = (write_width, bool(do_reads), bool(tick), bool(propose))
+    for _ in range(iters):
+        for advance in (0, 1):
+            state, box, stamp, hist, reads, now = _lat(
+                kp, replicas, *flags, advance, state, box, stamp, hist,
+                reads, now)
+    return graphs.fresh((state, box, stamp, hist, reads))
 
 
 # ---------------------------------------------------------------------------
@@ -390,9 +488,19 @@ def storm_keep(seed: int, micro_step: int, drop_p: float, like: torch.Tensor):
     (seed, micro_step), so the mask depends on nothing else and is the
     same on the CPU and the card; a slot drops when its bits fall below
     ``drop_p * 2**32``."""
-    key = int(KP.splitmix32(int(KP.splitmix32(seed & KP.U32_MASK))
-                            ^ (micro_step & KP.U32_MASK)))
-    flat = torch.arange(like.numel(), dtype=torch.int64, device=like.device)
+    def scalar(v):
+        return torch.full((), int(v), dtype=I64, device=like.device)
+
+    return _storm_keep_t(scalar(KP.splitmix32(seed & KP.U32_MASK)),
+                         scalar(micro_step), drop_p, like)
+
+
+def _storm_keep_t(key0: torch.Tensor, micro: torch.Tensor, drop_p: float,
+                  like: torch.Tensor):
+    """``storm_keep`` with splitmix32(seed) and the micro-step given as 0-d
+    int64 tensors (a graph's inputs)."""
+    key = KP.splitmix32_t(key0 ^ (micro & KP.U32_MASK))
+    flat = torch.arange(like.numel(), dtype=I64, device=like.device)
     bits = KP.splitmix32_t(flat.reshape(like.shape) ^ key)
     return bits >= min(round(float(drop_p) * 2**32), 2**32)
 
@@ -409,6 +517,27 @@ def _drop_box(box: Inbox, keep: torch.Tensor) -> Inbox:
     return type(box)(*[z(f) for f in box])
 
 
+def _storm_body(kp: KP.KernelParams, replicas: int, drop_p: float,
+                state: ShardState, box: Inbox, key0, micro):
+    state, box, _ = full_step(kp, replicas, state, box, True, False)
+    box = _drop_box(box, _storm_keep_t(key0, micro, drop_p, box.mtype))
+    return state, box, key0, micro + 1
+
+
+_storm = graphs.compiled(_storm_body, static_argnums=(0, 1, 2),
+                         donate_argnums=(3, 4, 5, 6))
+
+
+def _storm_masked_body(kp: KP.KernelParams, replicas: int,
+                       state: ShardState, box: Inbox, keep):
+    state, box, _ = full_step(kp, replicas, state, box, True, False)
+    return state, _drop_box(box, keep)
+
+
+_storm_masked = graphs.compiled(_storm_masked_body, static_argnums=(0, 1),
+                                donate_argnums=(2, 3))
+
+
 def run_steps_storm(kp: KP.KernelParams, replicas: int, iters: int,
                     drop_p: float, seed: int, state: ShardState, box: Inbox,
                     *, keep_masks=None):
@@ -416,12 +545,17 @@ def run_steps_storm(kp: KP.KernelParams, replicas: int, iters: int,
     thinned by ``storm_keep(seed, i, drop_p)``, or by ``keep_masks[i]``
     (``[G, K]`` bool each) when the caller gives them.  Returns (state,
     box)."""
-    for i in range(iters):
-        state, box, _ = full_step(kp, replicas, state, box, True, False)
-        keep = (storm_keep(seed, i, drop_p, box.mtype)
-                if keep_masks is None else keep_masks[i])
-        box = _drop_box(box, keep)
-    return state, box
+    if keep_masks is None:
+        key0 = _clock(KP.splitmix32(seed & KP.U32_MASK), state)
+        micro = _clock(0, state)
+        for _ in range(iters):
+            state, box, key0, micro = _storm(kp, replicas, float(drop_p),
+                                             state, box, key0, micro)
+    else:
+        for i in range(iters):
+            state, box = _storm_masked(kp, replicas, state, box,
+                                       keep_masks[i])
+    return graphs.fresh((state, box))
 
 
 def run_steps_storm_pipelined(kp: KP.KernelParams, replicas: int, iters: int,

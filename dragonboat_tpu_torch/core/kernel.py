@@ -25,6 +25,11 @@ The commit rule's order statistic goes through K1
 (``parallel/fabric_kernels.commit_quorum``), which takes the voting mask
 and the quorum from the peer kinds and launches one CUDA kernel on the
 card.
+
+``step``, ``step_donated`` and ``output_row_flags`` are compiled entries
+(``dragonboat_tpu_torch.graphs``), as the reference's are ``jax.jit``s: on
+the card each geometry is captured once as a CUDA graph and replayed; on
+the CPU the eager body ``_step`` runs.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from dragonboat_tpu_torch import graphs
 from dragonboat_tpu_torch import raftpb as pb
 from dragonboat_tpu_torch.core import params as P
 from dragonboat_tpu_torch.core.kstate import (
@@ -846,8 +852,8 @@ def _process_family(kp: P.KernelParams, family: str, s: ShardState,
 # ---------------------------------------------------------------------------
 
 
-def step(kp: P.KernelParams, s: ShardState, box: Inbox,
-         inp: StepInput) -> tuple[ShardState, StepOutput]:
+def _step(kp: P.KernelParams, s: ShardState, box: Inbox,
+          inp: StepInput) -> tuple[ShardState, StepOutput]:
     """Advance every shard row one step; returns (state, output)."""
     E, K, RI, Pn = kp.msg_entries, kp.inbox_cap, kp.readindex_cap, kp.num_peers
     G, dev = s.term.shape[0], s.term.device
@@ -1133,12 +1139,15 @@ def step(kp: P.KernelParams, s: ShardState, box: Inbox,
     return s, out
 
 
-# The reference's donating entry point.  torch has no buffer donation, so
-# this is ``step`` itself; callers keep the reference's no-touch contract
-# (the reference's kstate.DONATION): after a call, read only the RETURNED
-# state and output, never the state/inbox/input arguments, so a later
-# in-place implementation cannot change what they observe.
-step_donated = step
+#: the step entry (non-donating: the depth-0 serial oracle's)
+step = graphs.compiled(_step, static_argnums=(0,))
+
+# The reference's donating entry point: on the card the graph updates the
+# state in place in its static buffers.  Callers keep the reference's
+# no-touch contract (kstate.DONATION): after a call they read only the
+# RETURNED state and output, never the state/inbox/input arguments.
+step_donated = graphs.compiled(_step, static_argnums=(0,),
+                               donate_argnums=(1, 2, 3))
 
 
 # Message-class order of the [G, C] activity-flag matrix produced by
@@ -1147,17 +1156,32 @@ FLAG_CLASSES = ("resp", "rep", "hb", "vote", "timeout_now",
                 "need_snapshot", "wit_snap", "rtr")
 
 
-def output_row_flags(outs: StepOutput) -> torch.Tensor:
-    """[G, C] bool: per-row any() over each message class of a StepOutput,
-    columns in ``FLAG_CLASSES`` order."""
+# the StepOutput fields output_row_flags reads, in FLAG_CLASSES order
+_FLAG_FIELDS = ("r_type", "s_rep", "s_hb", "s_vote", "s_timeout_now",
+                "s_need_snapshot", "s_wit_snap", "rtr_valid")
+
+
+def _row_flags(r_type, s_rep, s_hb, s_vote, s_timeout_now, s_need_snapshot,
+               s_wit_snap, rtr_valid) -> torch.Tensor:
     cols = (
-        (outs.r_type != 0).any(dim=1),
-        outs.s_rep.any(dim=1),
-        outs.s_hb.any(dim=1),
-        (outs.s_vote != 0).any(dim=1),
-        outs.s_timeout_now.any(dim=1),
-        outs.s_need_snapshot.any(dim=1),
-        outs.s_wit_snap.any(dim=1),
-        outs.rtr_valid.any(dim=1),
+        (r_type != 0).any(dim=1),
+        s_rep.any(dim=1),
+        s_hb.any(dim=1),
+        (s_vote != 0).any(dim=1),
+        s_timeout_now.any(dim=1),
+        s_need_snapshot.any(dim=1),
+        s_wit_snap.any(dim=1),
+        rtr_valid.any(dim=1),
     )
     return torch.stack(cols, dim=1)
+
+
+#: the flag reduction's compiled entry, over the eight fields it reads
+row_flags = graphs.compiled(_row_flags)
+
+
+def output_row_flags(outs: StepOutput, entry=row_flags) -> torch.Tensor:
+    """[G, C] bool: per-row any() over each message class of a StepOutput,
+    columns in ``FLAG_CLASSES`` order.  ``entry`` is the compiled
+    reduction (an engine passes its own fork)."""
+    return entry(*(getattr(outs, f) for f in _FLAG_FIELDS))

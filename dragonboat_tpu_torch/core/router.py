@@ -18,12 +18,17 @@ The response-lane pick goes through K2
 by both lanes in one call, one CUDA launch a route on the card.  The
 per-source ``take`` keeps both of the reference's lowerings (gather, or
 one-hot with ``kp.onehot_reads``).
+
+``cluster_step`` and ``cluster_step_donated`` are compiled entries
+(``dragonboat_tpu_torch.graphs``), the reference's ``jax.jit`` pair: a
+CUDA graph per geometry on the card, the eager body on the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dragonboat_tpu_torch import graphs
 from dragonboat_tpu_torch import raftpb as pb
 from dragonboat_tpu_torch.core import params as KP
 from dragonboat_tpu_torch.core.kernel import onehot_select, step
@@ -225,9 +230,19 @@ def route(kp: KP.KernelParams, replicas: int, out: StepOutput) -> Inbox:
                     for k, v in fields.items()})
 
 
-def cluster_step(kp: KP.KernelParams, replicas: int, state: ShardState,
-                 inbox: Inbox, inp: StepInput):
+def _cluster_step(kp: KP.KernelParams, replicas: int, state: ShardState,
+                  inbox: Inbox, inp: StepInput):
     """One step for co-located groups: kernel step + device routing.
     Returns (state, next_inbox, out)."""
     state, out = step(kp, state, inbox, inp)
     return state, route(kp, replicas, out), out
+
+
+#: one step for co-located groups (non-donating)
+cluster_step = graphs.compiled(_cluster_step, static_argnums=(0, 1))
+
+#: the donating twin: state, inbox and input hand their buffers to the
+#: graph; the returned state and inbox are its static buffers, so a loop
+#: passing them back pays no copy (the no-touch rule applies)
+cluster_step_donated = graphs.compiled(_cluster_step, static_argnums=(0, 1),
+                                       donate_argnums=(2, 3, 4))

@@ -266,11 +266,16 @@ int launch(int32_t* keys, int32_t* vals, int32_t* count, const int2* cmds,
   rows = rows < 1 ? 1 : (rows > kMaxRowsPerBlock ? kMaxRowsPerBlock : rows);
   const size_t smem = (size_t)rows * T * sizeof(int32_t);
   if (smem > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
+  // the attribute is set once per instantiation, at its first launch
+  // (a compiled entry's warm-up, outside any CUDA-graph capture), to the
+  // largest size any launch may take, so one call covers every width
+  static bool smem_set = false;
+  if (smem > 48 * 1024 && !smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(
         kv_apply_kernel<CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kMaxSmemBytes);
     if (e != cudaSuccess) return (int)e;
+    smem_set = true;
   }
   const int blocks = (G + rows - 1) / rows;
   kv_apply_kernel<CPL><<<blocks, rows * 32, smem, stream>>>(

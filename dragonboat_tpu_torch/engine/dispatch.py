@@ -3,12 +3,20 @@
 The port of the reference's ``engine/dispatch.py``.  ``KernelEngine.step_all``
 is the only step loop; a dispatch backend contributes only ``dispatch()``
 and its entries.  ``SerialDispatch`` is the single-device backend, bound to
-the port's ``core/kernel.step`` and ``step_donated`` (eager PyTorch: the
-step's commit rule launches K1 on the card).  ``MeshDispatch`` is the mesh
-serving backend over ``parallel/ici.py``'s ``serve_step`` and
+the port's ``core/kernel.step`` and ``step_donated`` (the step's commit
+rule launches K1 on the card).  ``MeshDispatch`` is the mesh serving
+backend over ``parallel/ici.py``'s ``serve_step`` and
 ``serve_step_donated``: the inbox stays on the device between steps, the
 exchange inside the step routes it (one K2 launch a step on the card), and
 a per-link cut mask sends cut links over the host hub.
+
+The entries are compiled (``dragonboat_tpu_torch.graphs``): each backend
+binds forks of them with a graph pool of its own (``pool``; an engine
+replays on its own thread, and its output flag reduction joins the
+pool).  On the
+card the host staging writes straight into the graph's static inputs
+(``last_static``), so a step copies nothing device to device but the
+hub deliveries and cut mask of a mesh step.
 
 The module-level tuples and dicts below are the reference's machine-read
 contract, copied as they stand (with the package prefix rewritten, and the
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from dragonboat_tpu_torch import capacity as _capacity
+from dragonboat_tpu_torch import graphs
 from dragonboat_tpu_torch.core import params as KP
 from dragonboat_tpu_torch.core.kernel import (
     FLAG_CLASSES,
@@ -315,27 +324,36 @@ class SerialDispatch:
     def __init__(self, kp: KP.KernelParams,
                  step_fn=None, donated_fn=None) -> None:
         self.kp = kp
-        # per-instance telemetry wrappers (own counters; eager entries
-        # count calls and never record a compile).
+        # this backend's graphs: one pool, never replayed at once
+        self.pool = graphs.Pool()
         # step_fn/donated_fn let the engine bind ITS module globals
-        # (chaos tests swap in mutated kernels there)
-        self.entries = {
-            "step": _capacity.TRACKER.wrap(
-                "step", step_fn if step_fn is not None else kernel_step),
-            "step_donated": _capacity.TRACKER.wrap(
-                "step_donated",
-                donated_fn if donated_fn is not None
-                else kernel_step_donated),
+        # (chaos tests swap in mutated kernels there); each is forked, or
+        # compiled as its entry is, into this backend's pool
+        self._fns = {
+            "step": graphs.bind(
+                step_fn if step_fn is not None else kernel_step,
+                kernel_step, self.pool),
+            "step_donated": graphs.bind(
+                donated_fn if donated_fn is not None else kernel_step_donated,
+                kernel_step_donated, self.pool),
         }
+        # per-instance telemetry wrappers (own counters; a capture counts
+        # as the entry's compile)
+        self.entries = {name: _capacity.TRACKER.wrap(name, fn)
+                        for name, fn in self._fns.items()}
 
     def dispatch(self, state, inbox, inp, donate: bool):
         """One step.  ``donate=True`` routes through the donating entry
         (core/kernel.py ``step_donated``): under its no-touch contract
         the host must not read the passed state/inbox/input again after
         this call — step_all's retire-before-dispatch order upholds
-        that."""
-        entry = self.entries["step_donated" if donate else "step"]
-        return entry(self.kp, state, inbox.to_device(), inp.to_device())
+        that.  The staged inbox and input are written into the entry's
+        static inputs once its graph exists."""
+        name = "step_donated" if donate else "step"
+        fn = self._fns[name]
+        return self.entries[name](
+            self.kp, state, inbox.to_device(fn.last_static(2)),
+            inp.to_device(fn.last_static(3)))
 
     def pending(self) -> bool:
         """No device-resident inbox: nothing carries between steps."""
@@ -390,11 +408,11 @@ class MeshDispatch:
         # until the mask changes.
         self.cut = np.zeros((total, cluster.kp.num_peers), bool)
         self._cut_dev = None
-        self.entries = {
-            "serve_step": _capacity.TRACKER.wrap("serve_step", serve_step),
-            "serve_step_donated": _capacity.TRACKER.wrap(
-                "serve_step_donated", serve_step_donated),
-        }
+        self.pool = graphs.Pool()
+        self._fns = {"serve_step": serve_step.fork(self.pool),
+                     "serve_step_donated": serve_step_donated.fork(self.pool)}
+        self.entries = {name: _capacity.TRACKER.wrap(name, fn)
+                        for name, fn in self._fns.items()}
 
     def dispatch(self, state, inbox, inp, donate: bool):
         """Advance the mesh: host-staged inputs, device-routed messages.
@@ -420,13 +438,12 @@ class MeshDispatch:
                 return torch.where(m, s, b)
 
             self.box = Inbox(*[merge(s, b) for s, b in zip(staged, self.box)])
-        staged_inp = inp.to_device()
+        name = "serve_step_donated" if donate else "serve_step"
+        staged_inp = inp.to_device(self._fns[name].last_static(4))
         if self._cut_dev is None:
             with _capacity.METER.sanctioned("cut_up"):
                 self._cut_dev = torch.tensor(self.cut, device=cl.device)
-        entry = self.entries["serve_step_donated" if donate
-                             else "serve_step"]
-        state, box, out = entry(
+        state, box, out = self.entries[name](
             cl.kp, cl, state, self.box, staged_inp, self._cut_dev)
         self.box = box
         return state, out

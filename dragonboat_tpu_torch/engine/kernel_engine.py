@@ -77,6 +77,7 @@ from dragonboat_tpu_torch.core import params as KP
 from dragonboat_tpu_torch.core.kernel import (
     FLAG_CLASSES,
     output_row_flags,
+    row_flags,
     step as kernel_step,
     step_donated as kernel_step_donated,
 )
@@ -510,6 +511,8 @@ class KernelEngine:
         # a backend through the _make_dispatch seam instead of overriding
         # step-loop internals
         self._dispatch = self._make_dispatch()
+        # the output flag reduction's graphs, in the backend's pool
+        self._row_flags = row_flags.fork(self._dispatch.pool)
         self._cap_entries = self._capacity_entries()
         self.last_capacity: dict | None = None
         self._capacity_seq = 0          # capacity ticks (flight stamp)
@@ -830,40 +833,41 @@ class KernelEngine:
             self._flush_injections(pending_inject)
             inbox, inp = self._bufs[self._buf_idx]
             self._inbox_buf, self._input_buf = inbox, inp
-            inbox.reset()
-            inp.reset()
-            had_work = False
+            with annotate("kernel_engine.stage"):
+                inbox.reset()
+                inp.reset()
+                had_work = False
 
-            # swap out the dirty set; arrivals during this step land in
-            # the fresh set and stage next iteration
-            with self._dirty_mu:
-                dirty, self._dirty = self._dirty, set()
-            staged = [(g, nodes[g]) for g in sorted(dirty) if g in nodes]
-            # staging may target OTHER rows' prop slots (mesh engines
-            # forward follower-host proposals to the leader row); only
-            # rows recorded as prop targets can hold stale fates.  The
-            # pending ctx (if any) captured the OLD list objects, so the
-            # rebind here cannot lose in-flight fates
-            self._slot_cursor: dict[int, int] = {}
-            for g in self._staged_rows:
-                n = nodes.get(g)
-                if n is not None:
-                    n._staged_props = []
-            self._staged_rows = set()
-            for g, n in staged:
-                if self._stage_lane(g, n, inbox, inp):
-                    had_work = True
-            # consume one queued engine-wide tick round: every
-            # registered lane ticks via ONE vectorized bool write —
-            # no per-lane Python, no dirty-marking the whole batch
-            with self._tick_mu:
-                tick_round = self._tick_rounds_pending > 0
+                # swap out the dirty set; arrivals during this step land in
+                # the fresh set and stage next iteration
+                with self._dirty_mu:
+                    dirty, self._dirty = self._dirty, set()
+                staged = [(g, nodes[g]) for g in sorted(dirty) if g in nodes]
+                # staging may target OTHER rows' prop slots (mesh engines
+                # forward follower-host proposals to the leader row); only
+                # rows recorded as prop targets can hold stale fates.  The
+                # pending ctx (if any) captured the OLD list objects, so the
+                # rebind here cannot lose in-flight fates
+                self._slot_cursor: dict[int, int] = {}
+                for g in self._staged_rows:
+                    n = nodes.get(g)
+                    if n is not None:
+                        n._staged_props = []
+                self._staged_rows = set()
+                for g, n in staged:
+                    if self._stage_lane(g, n, inbox, inp):
+                        had_work = True
+                # consume one queued engine-wide tick round: every
+                # registered lane ticks via ONE vectorized bool write —
+                # no per-lane Python, no dirty-marking the whole batch
+                with self._tick_mu:
+                    tick_round = self._tick_rounds_pending > 0
+                    if tick_round:
+                        self._tick_rounds_pending -= 1
                 if tick_round:
-                    self._tick_rounds_pending -= 1
-            if tick_round:
-                lanes = np.fromiter(nodes.keys(), np.int64, len(nodes))
-                inp._tick[lanes] = True
-                had_work = True
+                    lanes = np.fromiter(nodes.keys(), np.int64, len(nodes))
+                    inp._tick[lanes] = True
+                    had_work = True
             # an eviction while staging (InstallSnapshot; whole-GROUP on a
             # mesh engine) may remove rows staged EARLIER in this loop —
             # drop them, failing any proposals forwarded onto them so the
@@ -1400,7 +1404,7 @@ class KernelEngine:
         for k in ctx.traced:
             lifecycle.TRACER.stamp(k, lifecycle.STAGE_RETIRE)
         with _capacity.METER.sanctioned("output_flags"):
-            flags = output_row_flags(out).cpu().numpy()
+            flags = output_row_flags(out, self._row_flags).cpu().numpy()
         # the dispatch backend derives drain-pending from the same flags
         # (MeshDispatch dropped its per-step pending-scalar download)
         self._dispatch.note_output_flags(flags)
@@ -1847,6 +1851,22 @@ def _put_rows(arr: torch.Tensor, rows: torch.Tensor, vals) -> torch.Tensor:
     return arr.index_put((rows,), v.expand((rows.shape[0],) + arr.shape[1:]))
 
 
+def _upload_into(into, builder, renamed: dict | None = None):
+    """Copy a builder's staging arrays into the device tree ``into`` (a
+    compiled step's static input), field by field; ``renamed`` maps a
+    field to its array, or to None for a field that stays all zero."""
+    renamed = renamed or {}
+    for f, dst in zip(into._fields, into):
+        if dst is None:
+            continue
+        a = renamed[f] if f in renamed else getattr(builder, f)
+        if a is None:
+            dst.zero_()
+        else:
+            dst.copy_(torch.from_numpy(a))
+    return into
+
+
 class _InboxBuilder:
     def __init__(self, G: int, K: int, E: int,
                  mesh_replicas: int | None = None, device=None) -> None:
@@ -1922,9 +1942,13 @@ class _InboxBuilder:
             n.mirror[e.index] = e
         return True
 
-    def to_device(self) -> Inbox:
+    def to_device(self, into: Inbox | None = None) -> Inbox:
+        """The staged inbox on the device; written into ``into`` (a
+        compiled step's static inbox) when given."""
         d = self.device
         with _capacity.METER.sanctioned("inbox_up"):
+            if into is not None:
+                return _upload_into(into, self)
             return Inbox(
                 mtype=_upload(self.mtype, d),
                 from_=_upload(self.from_, d),
@@ -1977,9 +2001,15 @@ class _InputBuilder:
     def applied(self, g: int, v: int) -> None:
         self._applied[g] = v
 
-    def to_device(self) -> StepInput:
+    def to_device(self, into: StepInput | None = None) -> StepInput:
+        """The staged input on the device; written into ``into`` (a
+        compiled step's static input) when given."""
         d = self.device
         with _capacity.METER.sanctioned("input_up"):
+            if into is not None:
+                return _upload_into(into, self, {
+                    "tick": self._tick, "applied": self._applied,
+                    "quiesced": None})
             return StepInput(
                 prop_valid=_upload(self.prop_valid, d),
                 prop_cc=_upload(self.prop_cc, d),

@@ -11,7 +11,10 @@ every module on a machine with no ``nvcc``.
 
 Every wrapper follows one rule: a CPU tensor takes the plain PyTorch arm,
 a CUDA tensor launches the kernel or raises (no fallback).  Each launch
-adds one to ``launches[name]``; nothing else touches the counts.
+adds one to ``launches[name]``; nothing else touches the counts.  A launch
+made while a CUDA graph is captured (``dragonboat_tpu_torch.graphs``) is
+recorded on that graph, whose every replay adds it again; a launch in a
+graph's warm-up counts nowhere.
 
 Several engine threads (one per ``NodeHost``) launch kernels at once, so
 building and loading the library is serialized by one lock (the first
@@ -34,6 +37,8 @@ import threading
 from pathlib import Path
 
 import torch
+
+from dragonboat_tpu_torch import graphs
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -188,11 +193,23 @@ def stream_ptr(device: torch.device) -> int:
 
 
 def check_launch(rc: int, name: str) -> None:
-    """Raise if a launch returned a CUDA error; count it otherwise."""
+    """Raise if a launch returned a CUDA error; count it otherwise (on the
+    graph this thread captures, if any: its replays count it)."""
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+    sink = graphs.launch_sink()
+    if sink is not None:
+        sink[name] += 1
+        return
     with _count_mu:
         launches[name] += 1
+
+
+def add_launches(counts) -> None:
+    """Add a replayed graph's launches (name -> count) to the counts."""
+    with _count_mu:
+        for name, n in counts.items():
+            launches[name] += n
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

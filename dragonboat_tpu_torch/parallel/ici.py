@@ -32,10 +32,13 @@ virtual CPU devices the reference's tests run on.  Two consequences:
   is not done here; it waits for a four-card configuration
   (ROADMAP.md).
 
-PyTorch runs eagerly, so the reference's jitted entries are plain
-functions and its ``fori_loop`` a Python loop.  The donating entry is the
-non-donating one (torch has no buffer donation, as for
-``core/kernel.step_donated``): callers keep the no-touch contract.
+The reference's jitted entries are compiled entries here
+(``dragonboat_tpu_torch.graphs``): ``serve_step`` and
+``serve_step_donated``, ``ici_cluster_step`` and the body that
+``ici_run_steps`` replays are each captured once per geometry as a CUDA
+graph on the card and run eagerly on the CPU.  The donating entry updates
+state and box in place in its static buffers; callers keep the no-touch
+contract.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from dragonboat_tpu_torch import graphs
 from dragonboat_tpu_torch.core import params as KP
 from dragonboat_tpu_torch.core.kernel import step
 from dragonboat_tpu_torch.core.kstate import (
@@ -152,12 +156,15 @@ def _ici_body(kp: KP.KernelParams, cluster: IciCluster,
     return state, _exchange(kp, cluster, out), out
 
 
+_ici_step = graphs.compiled(_ici_body, static_argnums=(0, 1))
+
+
 def ici_cluster_step(cluster: IciCluster, state: ShardState, box: Inbox,
                      inp: StepInput):
     """One cluster step with mesh message routing; returns (state,
     next_box, out).  The counterpart of router.cluster_step for
     mesh-laid-out replicas."""
-    return _ici_body(cluster.kp, cluster, state, box, inp)
+    return _ici_step(cluster.kp, cluster, state, box, inp)
 
 
 def _mask_outgoing(out: StepOutput, cut: torch.Tensor) -> StepOutput:
@@ -223,19 +230,18 @@ def _serve_body(kp: KP.KernelParams, cluster: IciCluster,
     return state, box, out
 
 
-def serve_step(kp: KP.KernelParams, cluster: IciCluster, state: ShardState,
-               box: Inbox, inp: StepInput, cut: torch.Tensor):
-    """The serving entry (non-donating): the depth-0 mesh oracle the
-    engine's dispatch layer wraps in its call telemetry.  ``cut`` is the
-    per-link mask ``[G, num_peers] bool`` (see ``_mask_outgoing``)."""
-    return _serve_body(kp, cluster, state, box, inp, cut)
+#: The serving entry (non-donating): the depth-0 mesh oracle the engine's
+#: dispatch layer wraps in its call telemetry.  Takes (kp, cluster, state,
+#: box, inp, cut); ``cut`` is the per-link mask ``[G, num_peers] bool``
+#: (see ``_mask_outgoing``).
+serve_step = graphs.compiled(_serve_body, static_argnums=(0, 1))
 
-
-# The reference's donating twin (``jit_serve_step_donated``).  torch has no
-# buffer donation, so it is ``serve_step`` itself; the pipelined dispatch
-# keeps the no-touch contract: after the call the host reads only the
-# returned state, box and output.  ``cut`` is never donated.
-serve_step_donated = serve_step
+# The reference's donating twin (``jit_serve_step_donated``): state, box
+# and input hand their buffers to the graph; the pipelined dispatch keeps
+# the no-touch contract: after the call the host reads only the returned
+# state, box and output.  ``cut`` is never donated.
+serve_step_donated = graphs.compiled(_serve_body, static_argnums=(0, 1),
+                                     donate_argnums=(2, 3, 4))
 
 
 def ici_serve_step(cluster: IciCluster, state: ShardState, box: Inbox,
@@ -266,11 +272,21 @@ def self_driving_input(kp: KP.KernelParams, state: ShardState,
     )
 
 
+def _run_body(kp: KP.KernelParams, cluster: IciCluster, propose: bool,
+              state: ShardState, box: Inbox):
+    inp = self_driving_input(kp, state, tick=True, propose=propose)
+    state, box, _ = _ici_body(kp, cluster, state, box, inp)
+    return state, box
+
+
+_run = graphs.compiled(_run_body, static_argnums=(0, 1, 2),
+                       donate_argnums=(3, 4))
+
+
 def ici_run_steps(kp: KP.KernelParams, cluster: IciCluster, iters: int,
                   propose: bool, state: ShardState, box: Inbox):
-    """``iters`` self-driving mesh steps (the bench's inner loop);
-    returns (state, box)."""
+    """``iters`` self-driving mesh steps (the bench's inner loop), one
+    replay of the step body each; returns (state, box)."""
     for _ in range(iters):
-        inp = self_driving_input(kp, state, tick=True, propose=propose)
-        state, box, _ = _ici_body(kp, cluster, state, box, inp)
-    return state, box
+        state, box = _run(kp, cluster, bool(propose), state, box)
+    return graphs.fresh((state, box))

@@ -58,6 +58,11 @@ def test_port_imports_no_jax_and_no_reference_package():
         st, box = bl.run_steps_storm(kp, 3, 2, 0.25, 1, st, box)
         st, box = bl.run_steps_storm_pipelined(kp, 3, 1, 0.25, 1, st, box)
         assert int(rej) == 0 and int(rd) > 0
+        # the compiled entries' module, through its CPU stand-in replayer
+        from dragonboat_tpu_torch import graphs
+        with graphs.stand_in():
+            st, box = bl.run_steps(kp, 3, 2, True, True, st, box)
+        assert bl._run._cache_size() == 1
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "dragonboat_tpu" or m.startswith("dragonboat_tpu."))

@@ -156,7 +156,10 @@ def test_random_step_and_route_equal_reference(onehot, seed, cq_pv):
         state, box, out, ref_out = _both_steps(kp_ref, kp, state, box, inp)
         assert np.array_equal(np.asarray(ref_kernel.output_row_flags(ref_out)),
                               tk.output_row_flags(out).numpy())
-    assert tk.step_donated is tk.step
+    # the donating entry compiles the same step body, donating state,
+    # inbox and input as the reference's (donate_argnums=(1, 2, 3))
+    assert tk.step_donated.fn is tk.step.fn
+    assert tk.step_donated.donate_argnums == (1, 2, 3)
 
 
 @pytest.mark.parametrize("seed,cq_pv", [(1, False), (2, True)])
