@@ -163,11 +163,28 @@ Phases, each printing one line (any failure exits non-zero):
    the first fault and after the heal, every acknowledged write in the
    journals of all three replicas, the journals equal ``[verify_wide]``;
    K1's and K2's entries timed on the path's inputs ``[verify_kernel]``;
-10. the ``kernels`` JSON line, one row per kernel with the numbers of the
+10. gossip_tcp: phase 7's cell (cut to GT_SHARDS = 512 device-resident
+   shards x 3 for the time limit; the reference's default ExpertConfig,
+   rtt 10 ms) on three NodeHosts over
+   ``TCPTransportFactory()`` on loopback ports, replicas named by
+   NodeHostID through gossip (each host's gossip seeded with the
+   others'): every registry the gossip one and resolving every
+   NodeHostID, every shard elected, every write acknowledged, the last
+   read back from every replica and through the leader, the history of
+   the writes and leader reads (``history.HistoryRecorder``)
+   linearizable; elect s, writes/s, engine step p50/p90, K1 launches per
+   engine step (exactly as many as a CPU step at the engine's geometry
+   makes) and K1 against its plain arm on tapped inputs
+   ``[gossip_tcp]``; then the lint driver's passes with their dynamic
+   legs on the card, no cached verdict (RS005's model checker launching
+   K1, the transfer leg under the CUDA sync guard, KC007 on card
+   tensors): each pass's findings (all 0) and wall seconds ``[lint]``;
+   K1's entry timed on the cell's inputs ``[gossip_tcp_kernel]``;
+11. the ``kernels`` JSON line, one row per kernel with the numbers of the
    entry the main path launches (``path`` "slice": launches phase 5's;
    ``path`` "mesh": launches phase 8's NodeHost cell's; ``path``
-   "verify": launches phase 9's), then the final ``{"ok": true, ...}``
-   line.
+   "verify": launches phase 9's; ``path`` "gossip_tcp": launches phase
+   10's cell's), then the final ``{"ok": true, ...}`` line.
 
 Every number the run takes is printed on these lines.  Needs no network
 and no JAX, and takes no arguments.  ``--compare-workers [ROUNDS]`` runs
@@ -179,7 +196,8 @@ ROUNDS times each.  ``--compare-turns [ROUNDS]`` runs only phases 1, 2 and
 the same cell graphed with the engines' shared step lock and with a null
 lock in its place, in turn, ROUNDS times each.  ``--mesh`` runs only phases 1, 2 and 8; ``--verify``
 only phases 1, 2 and 9, with every fast seed, the depth-1 schedule, the
-hotspot and the wide schedule.
+hotspot and the wide schedule; ``--gossip [SHARDS]`` only phases 1, 2
+and 10, its cell at SHARDS shards (GT_SHARDS unless given).
 """
 
 from __future__ import annotations
@@ -264,6 +282,15 @@ VERIFY_SEEDS = (1, 7, 9, 13, 25)
 CHAOS_TIME_SCALE, REF_IDLE_STEP_US = 10.0, 15_000
 MC_TAP_EVERY, PROBE_SEED, PROBE_IDLE_S = 23, 41, 8.0
 WIDE_SHARDS, WIDE_WRITES, WIDE_SEED, WIDE_STEP_S, WIDE_LIMIT_S = 1024, 2, 7, 1.0, 180.0
+# phase 10, phase 7's cell (device-resident shards x 3, the reference's
+# default ExpertConfig, rtt 10 ms, NH_WRITES writes a shard) on three
+# NodeHosts that name each other by NodeHostID through gossip, over the
+# TCP transport on loopback ports; cut from phase 7's 1024 shards to 512
+# for the script's time limit: on an H100 the cell took 19.9 s at 256
+# shards, 55.9 s at 512 and 220.3 s at 1024 (engine step p50 160, 541
+# and 1,252 ms, the output pass most of it: the hub flushes every
+# message as its own TCP frame from the engine's thread)
+GT_SHARDS = 512
 # the entry of each kernel that the main path launches
 MAIN_PATH_ENTRIES = ("commit_quorum", "gather_lanes_multi", "kv_apply")
 # the ExpertConfig switches that turn the three decimated reductions off
@@ -1849,10 +1876,12 @@ def _nh_leaders(hosts, shards) -> dict:
     return out
 
 
-def _nh_serve(hosts, shards, deadline_s=300.0) -> dict:
+def _nh_serve(hosts, shards, deadline_s=300.0, history=None) -> dict:
     """Elect every shard, write NH_WRITES values per shard asynchronously,
     wait for every acknowledgement, read the last value back from every
-    replica and through the leader on a sample."""
+    replica and through the leader on a sample.  ``history`` (a
+    ``history.HistoryRecorder``) records every write attempt and every
+    read through the leader, one register per shard."""
     from dragonboat_tpu_torch.request import RequestResultCode
 
     t0 = time.perf_counter()
@@ -1867,8 +1896,13 @@ def _nh_serve(hosts, shards, deadline_s=300.0) -> dict:
     check(all(len(t) < t.maxlen for t in timers), "step timer ring wrapped")
     marks = [len(t) for t in timers]
 
+    ops = {}
+
     def send_write(sid, w):
         nh = hosts[leaders[sid]]
+        if history is not None:
+            ops[(sid, w)] = history.invoke(leaders[sid], "write", str(sid),
+                                           f"{sid}.{w}")
         return nh.propose(nh.get_noop_session(sid), f"w={sid}.{w}".encode(),
                           timeout_s=120)
 
@@ -1883,10 +1917,14 @@ def _nh_serve(hosts, shards, deadline_s=300.0) -> dict:
         for key, rs in pending.items():
             r = rs.wait(120)
             if r.code == RequestResultCode.COMPLETED:
+                if history is not None:
+                    history.complete(ops[key])
                 acked += 1
                 continue
             check(r.code == RequestResultCode.DROPPED,
                   f"write {key} ended {r.code.name}")
+            if history is not None:
+                history.fail(ops[key])
             # dropped by a leadership change: a client retries on the
             # shard's current leader
             retried += 1
@@ -1917,10 +1955,14 @@ def _nh_serve(hosts, shards, deadline_s=300.0) -> dict:
     # sync_read's ReadIndex round on every sampled shard's leader, issued
     # together as a client with many shards would (one after another,
     # each waits several steps of three engines taking turns)
+    read_ops = {sid: history.invoke(leaders[sid], "read", str(sid))
+                for sid in sample} if history is not None else {}
     reads = {sid: hosts[leaders[sid]].read_index(sid, 60) for sid in sample}
     for sid, rs in reads.items():
         rs.get(60)
         got = hosts[leaders[sid]].read_local_node(sid, "w")
+        if history is not None:
+            history.complete(read_ops[sid], got)
         check(got == want[sid], f"shard {sid}: sync_read {got!r} != {want[sid]!r}")
     return {"readback_s": readback_s,
             "sync_read_s": time.perf_counter() - r1,
@@ -2189,7 +2231,9 @@ def _nh_reductions_vs_cpu(torch, hosts) -> dict:
     with KernelEngine._step_mu, eng.mu:
         state = type(eng.state)(*(None if v is None else v.clone()
                                   for v in eng.state))
-        inbox = eng._fleet_inbox_from()
+        # the serial engine's staged inbox is a host array (the
+        # reductions upload it, as the reference's jit does)
+        inbox = torch.as_tensor(eng._fleet_inbox_from(), device=eng.device)
         hd = type(eng._health_digest)(*(v.clone() for v in eng._health_digest))
         idg = type(eng._inv_digest)(*(v.clone() for v in eng._inv_digest))
         th, k = eng.health_thresholds, eng.health_top_k
@@ -3046,6 +3090,27 @@ def _mesh_eager(dev, tag) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def _k1_row(torch, k1_inputs, launches, path: str) -> dict:
+    """The kernels line's K1 row for a path: commit_quorum on the inputs
+    the path gave it (the last tap), timed against its plain arm, with
+    the path's launches."""
+    from dragonboat_tpu_torch.parallel import fabric_kernels as fk
+
+    match, kind = k1_inputs[-1]
+    G, P = match.shape
+    got, ref = fk.commit_quorum(match, kind), fk.commit_quorum_plain(match, kind)
+    b_ms, b_by = bound(_commit_bytes(G, P), _commit_ops(G, P))
+    return {"name": "commit_quorum", "kernel": "quorum_match", "route": "cuda",
+            "source": "dragonboat_tpu_torch/csrc/quorum_match.cu",
+            "replaces": "dragonboat_tpu/parallel/fabric_pallas.py:177",
+            "path": path, "shape": f"match [{G}, {P}] i32, kind [{G}, {P}] i32",
+            "launches": launches["quorum_match"],
+            "max_abs_err": max_abs_err(torch, got, ref),
+            "bound_ms": b_ms, "bound_by": b_by,
+            **_times(torch, lambda: fk.commit_quorum(match, kind),
+                     lambda: fk.commit_quorum_plain(match, kind), None)}
+
+
 def _mesh_rows(torch, k1_inputs, k2_inputs, launches,
                path: str = "mesh") -> list[dict]:
     """The kernels line's rows for a path (the mesh cell's by default):
@@ -3054,19 +3119,7 @@ def _mesh_rows(torch, k1_inputs, k2_inputs, launches,
     with the path's launches."""
     from dragonboat_tpu_torch.parallel import fabric_kernels as fk
 
-    match, kind = k1_inputs[-1]
-    G, P = match.shape
-    got, ref = fk.commit_quorum(match, kind), fk.commit_quorum_plain(match, kind)
-    b_ms, b_by = bound(_commit_bytes(G, P), _commit_ops(G, P))
-    k1 = {"name": "commit_quorum", "kernel": "quorum_match", "route": "cuda",
-          "source": "dragonboat_tpu_torch/csrc/quorum_match.cu",
-          "replaces": "dragonboat_tpu/parallel/fabric_pallas.py:177",
-          "path": path, "shape": f"match [{G}, {P}] i32, kind [{G}, {P}] i32",
-          "launches": launches["quorum_match"],
-          "max_abs_err": max_abs_err(torch, got, ref),
-          "bound_ms": b_ms, "bound_by": b_by,
-          **_times(torch, lambda: fk.commit_quorum(match, kind),
-                   lambda: fk.commit_quorum_plain(match, kind), None)}
+    k1 = _k1_row(torch, k1_inputs, launches, path)
     fields, lanes = k2_inputs[-1]
     got = _flat(fk.gather_lanes_multi(fields, lanes))
     ref = _flat(fk.gather_lanes_multi_plain(fields, lanes))
@@ -3523,6 +3576,241 @@ def phase_verify(torch, dev, smi: str, full: bool) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 10: gossip addressing over the TCP transport, and the lint driver
+# ---------------------------------------------------------------------------
+
+
+def _free_ports(n: int, kind) -> list[int]:
+    """n distinct free loopback ports (held until all are chosen)."""
+    import socket
+
+    socks = [socket.socket(socket.AF_INET, kind) for _ in range(n)]
+    for so in socks:
+        so.bind(("127.0.0.1", 0))
+    ports = [so.getsockname()[1] for so in socks]
+    for so in socks:
+        so.close()
+    return ports
+
+
+def _gt_hosts(shards: int, dev) -> dict:
+    """Three NodeHosts over ``TCPTransportFactory()`` (native wire) on
+    loopback ports, addressed by NodeHostID through gossip (each host's
+    gossip bound and advertised on a loopback port and seeded with the
+    others'), the reference's default ExpertConfig, rtt 10 ms;
+    ``shards`` device-resident shards x 3 replicas whose members are
+    NodeHostIDs."""
+    import socket
+
+    from dragonboat_tpu_torch.config import (
+        Config,
+        ExpertConfig,
+        GossipConfig,
+        NodeHostConfig,
+    )
+    from dragonboat_tpu_torch.nodehost import NodeHost
+    from dragonboat_tpu_torch.transport.tcp import TCPTransportFactory
+
+    gossip = [f"127.0.0.1:{p}" for p in _free_ports(3, socket.SOCK_DGRAM)]
+    raft = [f"127.0.0.1:{p}" for p in _free_ports(3, socket.SOCK_STREAM)]
+    hosts = {}
+    try:
+        for r in (1, 2, 3):
+            hosts[r] = NodeHost(NodeHostConfig(
+                raft_address=raft[r - 1], rtt_millisecond=10,
+                transport_factory=TCPTransportFactory(),
+                address_by_node_host_id=True,
+                gossip=GossipConfig(bind_address=gossip[r - 1],
+                                    advertise_address=gossip[r - 1],
+                                    seed=[a for a in gossip
+                                          if a != gossip[r - 1]]),
+                expert=ExpertConfig()), device=dev)
+        members = {r: nh.id for r, nh in hosts.items()}
+        for sid in range(1, shards + 1):
+            for r, nh in hosts.items():
+                nh.start_replica(members, False, _kv_sm, Config(
+                    shard_id=sid, replica_id=r, election_rtt=10,
+                    heartbeat_rtt=1, device_resident=True))
+    except BaseException:
+        _nh_close(hosts)
+        raise
+    return hosts
+
+
+def _gt_registries(hosts, deadline_s: float = 60.0) -> float:
+    """Seconds until every host's registry is the gossip one and resolves
+    every replica's NodeHostID to that host's raft address."""
+    t0 = time.perf_counter()
+    while True:
+        regs = [nh.get_node_host_registry() for nh in hosts.values()]
+        check(all(ok for _, ok in regs), "get_node_host_registry() not ok")
+        bad = []
+        for reg, _ in regs:
+            for rid, other in hosts.items():
+                try:
+                    addr = reg.resolve(1, rid)[0]
+                except KeyError:
+                    addr = None
+                if addr != other.config.raft_address:
+                    bad.append((rid, addr))
+        if not bad:
+            return time.perf_counter() - t0
+        check(time.perf_counter() - t0 < deadline_s,
+              f"gossip view never converged: {bad[:4]}")
+        time.sleep(0.1)
+
+
+def _gossip_tcp(torch, dev, shards: int) -> dict:
+    """[gossip_tcp]: the cell, its K1 launches (the step's, exactly
+    _k1_calls_per_step a step, and the probe's) and taps, and the
+    history of its writes and leader reads, checked linearizable."""
+    from dragonboat_tpu_torch import history, kernels
+    from dragonboat_tpu_torch.core import invariants as inv
+    from dragonboat_tpu_torch.core import kernel as K
+    from dragonboat_tpu_torch.engine import kernel_engine
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    step_tap, untap_step = _tap(K, "commit_quorum", K1_TAP_EVERY)
+    probe_tap, untap_probe = _tap(inv, "quorum_match", 1)
+    engine_steps: dict = {}
+    uncount = [_count_calls(kernel_engine, attr, engine_steps)
+               for attr in ("kernel_step", "kernel_step_donated")]
+    spans: dict = {}
+    unspan = _time_spans(spans)
+
+    def restore():
+        untap_step()
+        untap_probe()
+        for u in uncount:
+            u()
+        unspan()
+
+    hist = history.HistoryRecorder()
+    try:
+        hosts = _gt_hosts(shards, dev)
+        admit_s = time.perf_counter() - t0
+        try:
+            try:
+                converge_s = _gt_registries(hosts)
+                st = _nh_serve(hosts, shards, history=hist)
+                torch.cuda.synchronize()
+                launches = dict(kernels.launches)
+                calls = (step_tap["calls"], probe_tap["calls"],
+                         sum(engine_steps.values()))
+                span_stats = _span_stats(spans)
+            finally:
+                restore()
+            known = [nh.get_node_host_registry()[0].num_of_shards()
+                     for nh in hosts.values()]
+            k1_per_step = _k1_calls_per_step(hosts[1].kernel_engine.kp)
+            resident = all(nh.nodes[1].peer is None for nh in hosts.values())
+        finally:
+            c0 = time.perf_counter()
+            _nh_close(hosts)
+            close_s = time.perf_counter() - c0
+    finally:
+        restore()
+    t1 = time.perf_counter()
+    linearizable = history.check_linearizable_kv(hist.ops)
+    out = {"shards": shards, "replicas": 3, "hosts": 3,
+           "transport": "TCPTransportFactory() native wire, loopback",
+           "addressing": "NodeHostID via gossip", "admit_s": admit_s,
+           "gossip_converge_s": converge_s,
+           "gossip_known_shards": json.dumps(known), **st, **span_stats,
+           "history_ops": len(hist.ops),
+           "history_check_s": time.perf_counter() - t1,
+           "linearizable": linearizable,
+           "k1_launches": launches["quorum_match"],
+           "k1_step_calls": calls[0], "k1_probe_calls": calls[1],
+           "engine_steps": calls[2], "k1_per_engine_step": k1_per_step,
+           "k1_per_engine_step_measured": calls[0] / max(1, calls[2]),
+           **_tapped(torch, step_tap["inputs"], "k1_tapped", "commit_quorum"),
+           **_tapped(torch, probe_tap["inputs"], "k1_probe_tapped"),
+           "close_s": close_s, "seconds": time.perf_counter() - t0}
+    check(resident, "gossip_tcp: a shard is not device-resident")
+    check(out["acked"] == shards * NH_WRITES,
+          "gossip_tcp: not every write acknowledged")
+    check(linearizable, "gossip_tcp: the client history is not linearizable")
+    check(calls[0] > 0 and calls[0] == k1_per_step * calls[2],
+          f"gossip_tcp: {calls[0]} K1 launches by the engines' {calls[2]} "
+          f"steps, not {k1_per_step} a step")
+    check(calls[0] + calls[1] == launches["quorum_match"],
+          "gossip_tcp: K1's launches are not the step's and the probe's calls")
+    for key in ("k1_tapped_mismatches", "k1_probe_tapped_mismatches"):
+        check(out[key] == 0, f"gossip_tcp: K1 disagrees with its plain arm ({key})")
+    out["_taps"] = step_tap["inputs"]
+    out["_launches"] = launches
+    return out
+
+
+def _lint(torch, dev) -> dict:
+    """[lint]: the lint driver's passes with their dynamic legs on the
+    card, no cached verdicts: RS005 (the model checker's fast scope, K1
+    on the card), the transfer dynamic leg under the CUDA sync guard,
+    KC007 on card tensors; findings and wall seconds of each pass."""
+    import os
+
+    from dragonboat_tpu_torch.analysis import __main__ as lint
+    from dragonboat_tpu_torch.analysis import common
+
+    launches: dict = {}
+    t0 = time.perf_counter()
+    res = _counted(torch, lambda: lint.run_passes(
+        dynamic=True, device=dev, use_cache=False), launches)
+    waivers = common.load_waivers(os.path.join(lint.ROOT, lint.WAIVERS_FILE))
+    out, bad = {}, []
+    for name, (found, secs) in res.items():
+        unwaived, _ = common.apply_waivers(found, waivers)
+        key = name.replace("-", "_")
+        out[f"{key}_findings"] = len(unwaived)
+        out[f"{key}_s"] = secs
+        bad += [f.format() for f in unwaived]
+    bad += [f.format() for f in lint.stale_waiver_findings(waivers, lint.ROOT)]
+    out.update(k1_launches=launches.get("quorum_match", 0),
+               k2_launches=launches.get("gather_lanes", 0),
+               seconds=time.perf_counter() - t0)
+    check(not bad, f"lint: {len(bad)} finding(s) on the card: {bad[:4]}")
+    check(out["k1_launches"] > 0, "lint: the dynamic legs launched no K1")
+    # the guard's controls: a device->host read raises under it, and
+    # passes inside a sanctioned crossing
+    from dragonboat_tpu_torch.capacity import METER
+
+    x = torch.ones(4, device=dev)
+    with METER.guard():
+        try:
+            x.sum().item()
+            trips = False
+        except RuntimeError:
+            trips = True
+        with METER.sanctioned("control"):
+            lifted = x.sum().item() == 4.0
+    METER.reset()
+    out.update(guard_trips_undeclared=trips, guard_lifts_sanctioned=lifted)
+    check(trips, "lint: an undeclared sync did not raise under the guard")
+    check(lifted, "lint: a sanctioned crossing did not lift the guard")
+    return out
+
+
+def phase_gossip_tcp(torch, dev, smi: str,
+                     shards: int = GT_SHARDS) -> list[dict]:
+    """Phase 10: the NodeHost cell addressed by NodeHostID over the TCP
+    transport, then the lint driver's dynamic legs on the card.  Returns
+    the kernels line's gossip_tcp row."""
+    t0 = time.perf_counter()
+    cell = _gossip_tcp(torch, dev, shards)
+    taps, launches = cell.pop("_taps"), cell.pop("_launches")
+    say("gossip_tcp", **cell, phase7_shards=NH_SHARDS, card=json.dumps(smi))
+    say("lint", **_lint(torch, dev), card=json.dumps(smi))
+    row = _k1_row(torch, taps, launches, "gossip_tcp")
+    say("gossip_tcp_kernel", **{k: v for k, v in row.items() if k != "timing"},
+        timing=json.dumps(row["timing"]))
+    say("gossip_tcp_total", seconds=time.perf_counter() - t0)
+    return [row]
+
+
 def compare_workers(torch, dev, rounds: int) -> int:
     """``python3 chip_smoke.py --compare-workers [ROUNDS]``: the NodeHost
     cell under the reference's EngineConfig and under one step worker, in
@@ -3600,6 +3888,10 @@ def main() -> int:
     if sys.argv[1:2] == ["--verify"]:
         phase_verify(torch, dev, device["nvidia_smi"], full=True)
         return 0
+    if sys.argv[1:2] == ["--gossip"]:
+        phase_gossip_tcp(torch, dev, device["nvidia_smi"],
+                         int((sys.argv[2:] or [GT_SHARDS])[0]))
+        return 0
     rows = phase_kernels(torch, dev)
     phase_parity(torch, dev)
     launches = phase_slice(torch, dev)
@@ -3607,6 +3899,7 @@ def main() -> int:
     phase_nodehost(torch, dev, device["nvidia_smi"])
     mesh_rows = phase_mesh(torch, dev, device["nvidia_smi"])
     verify_rows = phase_verify(torch, dev, device["nvidia_smi"], full=False)
+    gossip_rows = phase_gossip_tcp(torch, dev, device["nvidia_smi"])
     say("total", seconds=time.perf_counter() - t0)
     # one row per kernel: the numbers of the entry the main path launches
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
@@ -3617,7 +3910,7 @@ def main() -> int:
         for r in rows if r["name"] in MAIN_PATH_ENTRIES] + [
         {"name": r["kernel"], "entry": r["name"], "path": r["path"],
          "launches": r["launches"], **{k: r[k] for k in keys}}
-        for r in mesh_rows + verify_rows]}))
+        for r in mesh_rows + verify_rows + gossip_rows]}))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))

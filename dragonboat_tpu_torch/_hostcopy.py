@@ -11,9 +11,11 @@ and the JAX package's change and issue numbers read ``round N``.  The
 modules that touch JAX (``tracing``, ``capacity``, the device reductions
 ``core/fleet``, ``core/health`` and ``core/invariants``, ``engine/dispatch``,
 ``engine/kernel_engine``, ``nodehost``, ``chaos/runner``) are ported by
-hand and are not listed here.  Two hand ports follow one reference file
-each closely (``HAND_PORTS``: the chaos runner, and the model checker from
-``scripts/model_check.py``); each is held to its recorded diff against the
+hand and are not listed here.  The hand ports that follow one reference
+file each (``HAND_PORTS``: the chaos runner, the model checker from
+``scripts/model_check.py``, the analysis passes, whose scopes name the
+port's files, and ``logdb/kv``, which refuses a corrupt SST the reference
+reads past its end) are each held to a recorded diff against the
 rewritten reference text under ``tests/hand_ports/``, so an edit on either
 side shows as drift until the diff is recorded again.
 
@@ -42,15 +44,16 @@ MODULES = (
     "config", "client", "events", "logger", "lifecycle", "flight",
     "telemetry", "request", "raftio", "statemachine", "quiesce",
     "registry", "vfs", "native", "tools", "fabric", "control",
+    "history", "gossip", "analysis/common",
     "core/logentry", "core/peer", "core/pycore",
-    "logdb/__init__", "logdb/memdb", "logdb/kv", "logdb/kvdb", "logdb/tan",
+    "logdb/__init__", "logdb/memdb", "logdb/kvdb", "logdb/tan",
     "logdb/sharded", "logdb/logreader",
     "rsm/__init__", "rsm/statemachine", "rsm/encoded", "rsm/session",
     "rsm/membership", "rsm/snapshotio", "rsm/chunkwriter", "rsm/gosnapshot",
     "server/__init__", "server/env", "server/metrics_http", "server/rate",
     "server/settings",
     "transport/__init__", "transport/chan", "transport/chunks",
-    "transport/hub",
+    "transport/hub", "transport/tcp",
     "node", "engine/__init__", "engine/apply_pool",
     "chaos/__init__", "chaos/crashfs", "chaos/faultplan", "chaos/oracle",
 )
@@ -59,6 +62,13 @@ MODULES = (
 HAND_PORTS = {
     "chaos/runner.py": "dragonboat_tpu/chaos/runner.py",
     "model_check.py": "scripts/model_check.py",
+    "logdb/kv.py": "dragonboat_tpu/logdb/kv.py",
+    "analysis/determinism.py": "dragonboat_tpu/analysis/determinism.py",
+    "analysis/concurrency.py": "dragonboat_tpu/analysis/concurrency.py",
+    "analysis/safety.py": "dragonboat_tpu/analysis/safety.py",
+    "analysis/engine_unity.py": "dragonboat_tpu/analysis/engine_unity.py",
+    "analysis/contracts.py": "dragonboat_tpu/analysis/contracts.py",
+    "analysis/transfer.py": "dragonboat_tpu/analysis/transfer.py",
 }
 HAND_DIFFS = ROOT / "tests" / "hand_ports"
 

@@ -1,16 +1,133 @@
-"""The CONTRACTS grammar parser the capacity model sizes groups with.
+"""Shared lint plumbing: findings, waivers, reporting.
 
-The parts of the reference's ``analysis/common.py`` that the port runs:
-the field-contract grammar (``"[G, P] i32 part=G"``) and its parser, which
-``capacity`` sizes groups with, and the protocol-invariant grammar and its
-parser, which ``core/invariants`` evaluates.  The lint passes and waivers
-are not part of the port.
+Waivers live in ``analysis/waivers.toml``.  The container pins Python
+3.10 (no ``tomllib``) and the repo takes no third-party deps, so the
+loader reads the narrow TOML subset the file actually uses:
+``[[waiver]]`` array-of-tables with quoted-string values and ``#``
+comments.  The format stays real TOML so a 3.11 toolchain can parse the
+same file.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import fnmatch
+import os
+from dataclasses import dataclass, field
 
+
+@dataclass(frozen=True)
+class Finding:
+    """One lint hit, addressed by repo-relative path."""
+
+    pass_name: str   # "tracer-safety" | "hlo-budget" | "concurrency" | ...
+    path: str        # repo-relative, forward slashes
+    line: int
+    rule: str        # short id, e.g. "TS001"
+    message: str
+
+    def format(self) -> str:
+        return f"{self.path}:{self.line}: [{self.rule}] {self.message}"
+
+
+@dataclass
+class Waiver:
+    pass_name: str
+    path: str                      # fnmatch pattern on the relative path
+    reason: str
+    rule: str | None = None
+    contains: str | None = None    # substring of the finding message
+    hits: int = field(default=0, compare=False)
+    line: int = field(default=0, compare=False)  # [[waiver]] line in the toml
+
+    def matches(self, f: Finding) -> bool:
+        if self.pass_name != f.pass_name:
+            return False
+        if not fnmatch.fnmatch(f.path, self.path):
+            return False
+        if self.rule is not None and self.rule != f.rule:
+            return False
+        if self.contains is not None and self.contains not in f.message:
+            return False
+        return True
+
+
+class WaiverError(ValueError):
+    pass
+
+
+def _parse_toml_subset(text: str, where: str) -> list[dict]:
+    """``[[waiver]]`` tables of ``key = "string"`` pairs; nothing else."""
+    tables: list[dict] = []
+    cur: dict | None = None
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = raw.strip()
+        if not line or line.startswith("#"):
+            continue
+        if line == "[[waiver]]":
+            cur = {"__line__": n}
+            tables.append(cur)
+            continue
+        if "=" in line and cur is not None:
+            key, _, val = line.partition("=")
+            key, val = key.strip(), val.strip()
+            # strip a trailing comment outside the quotes
+            if len(val) >= 2 and val[0] in "\"'":
+                q = val[0]
+                end = val.find(q, 1)
+                if end < 0:
+                    raise WaiverError(f"{where}:{n}: unterminated string")
+                cur[key] = val[1:end]
+                continue
+        raise WaiverError(f"{where}:{n}: unsupported syntax {line!r} "
+                          "(only [[waiver]] tables of quoted strings)")
+    return tables
+
+
+def load_waivers(path: str) -> list[Waiver]:
+    if not os.path.exists(path):
+        return []
+    with open(path, encoding="utf-8") as f:
+        tables = _parse_toml_subset(f.read(), os.path.basename(path))
+    waivers = []
+    for i, t in enumerate(tables):
+        missing = {"pass_name", "path", "reason"} - set(t)
+        if missing:
+            raise WaiverError(
+                f"waiver #{i + 1} missing keys: {sorted(missing)}")
+        if not t["reason"].strip():
+            raise WaiverError(f"waiver #{i + 1}: empty reason")
+        waivers.append(Waiver(pass_name=t["pass_name"], path=t["path"],
+                              reason=t["reason"], rule=t.get("rule"),
+                              contains=t.get("contains"),
+                              line=t.get("__line__", 0)))
+    return waivers
+
+
+def apply_waivers(findings: list[Finding], waivers: list[Waiver]
+                  ) -> tuple[list[Finding], list[tuple[Finding, Waiver]]]:
+    """-> (unwaived, [(waived finding, its waiver)]).  First match wins."""
+    unwaived: list[Finding] = []
+    waived: list[tuple[Finding, Waiver]] = []
+    for f in findings:
+        for w in waivers:
+            if w.matches(f):
+                w.hits += 1
+                waived.append((f, w))
+                break
+        else:
+            unwaived.append(f)
+    return unwaived, waived
+
+
+def rel(root: str, path: str) -> str:
+    return os.path.relpath(path, root).replace(os.sep, "/")
+
+
+# ---------------------------------------------------------------------------
+# Field-contract grammar (core/kstate.py CONTRACTS) + the tiny shape/dtype
+# lattice the contracts pass interprets over.  Kept here so tests and any
+# future pass share one parser.
+# ---------------------------------------------------------------------------
 
 #: canonical dtype names used throughout the contracts pass
 DTYPES = ("i32", "u32", "f32", "bool")
@@ -103,6 +220,53 @@ def parse_contracts(table: dict, where: str = "<contracts>"
             for name, spec in fields.items()
         }
     return out
+
+
+def broadcast_axes(a: tuple[str, ...] | None, b: tuple[str, ...] | None
+                   ) -> tuple[tuple[str, ...] | None, str | None]:
+    """NumPy trailing-aligned broadcast over NAMED axes.
+
+    Axis entries are axis names, ``'1'`` (unit, broadcasts into anything)
+    or ``'?'`` (unknown extent, unifies with anything).  ``None`` means a
+    fully unknown rank/shape.  Returns ``(result_axes, conflict)`` where
+    ``conflict`` is a human-readable description of the first pair of
+    distinct named axes forced into alignment, or ``None`` if the
+    broadcast is clean.
+    """
+    if a is None and b is None:
+        return None, None
+    if a is None or b is None:
+        # unknown rank/shape unifies with the known side (optimistic:
+        # the lattice never flags what it cannot see)
+        return (b if a is None else a), None
+    out: list[str] = []
+    conflict = None
+    for i in range(1, max(len(a), len(b)) + 1):
+        x = a[-i] if i <= len(a) else "1"
+        y = b[-i] if i <= len(b) else "1"
+        if x == y:
+            out.append(x)
+        elif x == "1":
+            out.append(y)
+        elif y == "1":
+            out.append(x)
+        elif x == "?" or y == "?":
+            out.append(y if x == "?" else x)
+        else:
+            # two distinct NAMED axes aligned — the broadcast "works"
+            # numerically whenever the extents happen to agree (K == E
+            # == B == RI == 8 in the default geometry), which is exactly
+            # the silent cross-axis bug this lattice exists to catch.
+            conflict = f"axis {x!r} vs {y!r} at dim -{i}"
+            out.append("?")
+    return tuple(reversed(out)), conflict
+
+
+def join_dtypes(a: str | None, b: str | None) -> str | None:
+    """Lattice join for ``jnp.where``-style merges: agree or unknown."""
+    if a is None or b is None:
+        return None
+    return a if a == b else None
 
 
 # ---------------------------------------------------------------------------

@@ -437,31 +437,63 @@ MEMORY_PRESSURE = _flight.MEMORY_PRESSURE
 # ---------------------------------------------------------------------------
 
 
-class _SanctionedCrossing:
-    """One declared boundary crossing: counts its tag."""
+def _card_in_use() -> bool:
+    """Whether this process drives a CUDA card (the sync guard's scope)."""
+    import torch
 
-    __slots__ = ("_meter", "_tag")
+    return torch.cuda.is_available() and torch.cuda.is_initialized()
+
+
+def _set_sync_mode(mode) -> None:
+    import torch
+
+    torch.cuda.set_sync_debug_mode(mode)
+
+
+class _SanctionedCrossing:
+    """One declared boundary crossing: counts its tag, and — only while
+    the card's sync guard is active — lifts it for its extent so every
+    sync OUTSIDE a sanctioned scope keeps raising."""
+
+    __slots__ = ("_meter", "_tag", "_lifted")
 
     def __init__(self, meter: "TransferMeter", tag: str) -> None:
         self._meter = meter
         self._tag = tag
+        self._lifted = False
 
     def __enter__(self) -> "_SanctionedCrossing":
         m = self._meter
         with m.mu:
             m._counts[self._tag] = m._counts.get(self._tag, 0) + 1
+            if m._card_guard:
+                self._lifted = True
+                m._lifts += 1
+                if m._lifts == 1:
+                    _set_sync_mode(0)
         return self
 
     def __exit__(self, *exc) -> bool:
+        if self._lifted:
+            self._lifted = False
+            m = self._meter
+            with m.mu:
+                m._lifts -= 1
+                if m._lifts == 0 and m._card_guard:
+                    _set_sync_mode("error")
         return False
 
 
 class _TransferGuard:
-    """The meter's guard-depth bookkeeping.  PyTorch has no transfer
-    guard that a sanctioned scope could lift for its extent
-    (``torch.cuda.set_sync_debug_mode`` is process-wide and also trips on
-    syncs inside the step itself), so in the port the guard only counts:
-    crossings are tallied under their tags and nothing raises."""
+    """The transfer guard.  On the card it is
+    ``torch.cuda.set_sync_debug_mode("error")``: a device->host sync
+    outside a sanctioned scope raises.  The mode is process-wide, so the
+    guard covers every thread of the process for its extent (engines in
+    one process take turns through ``KernelEngine._step_mu``, and a
+    sanctioned scope on any thread lifts it); the outermost guard sets it
+    and restores the mode it found.  On the CPU there is no sync to catch:
+    the guard only keeps the depth, and crossings are tallied under their
+    tags."""
 
     __slots__ = ("_meter",)
 
@@ -472,12 +504,22 @@ class _TransferGuard:
         m = self._meter
         with m.mu:
             m._guard_depth += 1
+            if m._guard_depth == 1 and _card_in_use():
+                import torch
+
+                m._prev_sync_mode = torch.cuda.get_sync_debug_mode()
+                m._card_guard = True
+                if m._lifts == 0:
+                    _set_sync_mode("error")
         return self
 
     def __exit__(self, *exc) -> bool:
         m = self._meter
         with m.mu:
             m._guard_depth = max(0, m._guard_depth - 1)
+            if m._guard_depth == 0 and m._card_guard:
+                m._card_guard = False
+                _set_sync_mode(m._prev_sync_mode)
         return False
 
 
@@ -487,21 +529,24 @@ class TransferMeter:
     the engine layer wraps its transfer in ``sanctioned(tag)``; the
     transfer lint's dynamic leg and the engine differentials run the
     step loop under ``guard()`` and diff ``counts()`` against the
-    static TRANSFER_LEDGER — a sanctioned crossing is tallied under its
-    declared tag (in the port the guard raises on nothing; see
+    static TRANSFER_LEDGER — on the card an unsanctioned sync raises, a
+    sanctioned crossing is tallied under its declared tag (see
     ``_TransferGuard``)."""
 
     def __init__(self) -> None:
         self.mu = threading.Lock()
         self._counts: dict = {}    # guarded-by: mu  (tag -> crossings)
         self._guard_depth = 0      # guarded-by: mu
+        self._card_guard = False   # guarded-by: mu  (sync mode "error" set)
+        self._lifts = 0            # guarded-by: mu  (open sanctioned scopes)
+        self._prev_sync_mode = 0   # guarded-by: mu
 
     def sanctioned(self, tag: str) -> _SanctionedCrossing:
         """Context manager for one declared crossing (see class doc)."""
         return _SanctionedCrossing(self, tag)
 
     def guard(self) -> _TransferGuard:
-        """Guarded-run context for tests (a counter in the port)."""
+        """Disallow-undeclared-syncs context for tests and lint."""
         return _TransferGuard(self)
 
     def counts(self) -> dict:

@@ -47,7 +47,11 @@ def tensor_from_numpy(a: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(resolve_device(device))
 
 
-def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+def tensor_to_numpy(t: torch.Tensor | np.ndarray) -> np.ndarray:
+    """A host array of ``t``; a host array passes through (as
+    ``jax.device_get`` passes it)."""
+    if isinstance(t, np.ndarray):
+        return t
     return t.detach().cpu().numpy()
 
 

@@ -76,12 +76,15 @@ class FleetStats(NamedTuple):
 
 def fleet_stats(state, inbox_from: torch.Tensor) -> FleetStats:
     """One reduction over the resident state (the reference's
-    ``_fleet_stats_impl``): ``inbox_from [G, K]`` i32 on the state's
-    device.  Every leaf is i32 (torch sums of bool and i32 widen to i64,
-    so each sum names its dtype).  The bucket bounds are compared as
-    Python ints, so the pass copies nothing from the host."""
+    ``_fleet_stats_impl``): ``inbox_from [G, K]`` i32, a host array (the
+    serial engine's staged inbox: uploaded here, as the reference's jit
+    takes it) or a tensor on the state's device.  Every leaf is i32 (torch
+    sums of bool and i32 widen to i64, so each sum names its dtype).  The
+    bucket bounds are compared as Python ints, so the pass copies nothing
+    else from the host."""
     i32 = torch.int32
     dev = state.role.device
+    inbox_from = torch.as_tensor(inbox_from, device=dev)
     occ = (state.kind != P.K_ABSENT).any(dim=1)               # [G] bool
     occ_i = occ.to(i32)
     occupied = occ_i.sum(dtype=i32)

@@ -174,9 +174,11 @@ def fleet_health(state, inbox_from: torch.Tensor, digest: HealthDigest,
                  k: int = DEFAULT_TOP_K
                  ) -> tuple[HealthReport, HealthDigest]:
     """One classification pass (the reference's ``_fleet_health_impl``):
-    ``inbox_from [G, K]`` i32 on the state's device; every report and
-    digest leaf is i32."""
+    ``inbox_from [G, K]`` i32, a host array (uploaded here, as the
+    reference's jit takes it) or a tensor on the state's device; every
+    report and digest leaf is i32."""
     i32 = torch.int32
+    inbox_from = torch.as_tensor(inbox_from, device=state.term.device)
     occ = (state.kind != P.K_ABSENT).any(dim=1)               # [G] bool
     valid = digest.ticks > 0                                  # [G] bool
     lag = state.committed - state.applied                     # [G] i32
@@ -282,9 +284,10 @@ def shard_row(state, inbox_from: torch.Tensor, digest: HealthDigest,
     """ONE group's row (the reference's ``_shard_row_impl``), every leaf
     an i32 scalar tensor on the state's device.  The anomaly flags reuse
     the digest's post-tick counters, so they agree with the report of the
-    most recent health tick."""
+    most recent health tick.  ``inbox_from`` as for ``fleet_health``."""
     i32 = torch.int32
     lane = int(lane)
+    inbox_from = torch.as_tensor(inbox_from, device=state.term.device)
 
     def pick(arr):
         return arr[lane]

@@ -214,6 +214,64 @@ INVARIANTS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# Buffer-donation contract (checked by analysis/contracts.py, KC008, and
+# by the engine-unity pass's EU003).
+#
+# The reference's table, for the port's compiled entries: each entry names
+# a ``graphs.compiled`` entry that donates argument buffers to its CUDA
+# graph and records WHICH positional arguments (and the parameter names of
+# the function it compiles) are donated.  Entries default to
+# core/kernel.py; an entry with a ``module`` key declares a donating entry
+# elsewhere, and ``function`` names the module-level entry when it differs
+# from the entry's name.  The analyzer reads each module's
+# ``graphs.compiled(..., donate_argnums=...)`` assignments and fails lint
+# if the positions there drift from this declaration.
+#
+# Host rule implied by donation: after calling a donated entry the caller
+# reads only the returned state/output, never the donated arguments (on
+# the card the graph updates its static buffers in place).
+# ---------------------------------------------------------------------------
+
+DONATION = {
+    "step_donated": {
+        "argnums": (1, 2, 3),
+        "params": ("s", "box", "inp"),
+        "donor_classes": ("ShardState", "Inbox", "StepInput"),
+        "result_classes": ("ShardState", "StepOutput"),
+    },
+    "serve_step_donated": {
+        # the mesh dispatch entry: state, the carried device inbox and
+        # the staged input are donated; the cut mask (argnum 5) is cached
+        # across steps by the engine and must NOT be donated
+        "module": "dragonboat_tpu_torch/parallel/ici.py",
+        "argnums": (2, 3, 4),
+        "params": ("state", "box", "inp"),
+        "donor_classes": ("ShardState", "Inbox", "StepInput"),
+        "result_classes": ("ShardState", "Inbox", "StepOutput"),
+    },
+    "cluster_step_donated": {
+        # router-layout twin used by the depth-1 differential arm: same
+        # donation triple as step_donated, fused with device routing
+        "module": "dragonboat_tpu_torch/core/router.py",
+        "argnums": (2, 3, 4),
+        "params": ("state", "inbox", "inp"),
+        "donor_classes": ("ShardState", "Inbox", "StepInput"),
+        "result_classes": ("ShardState", "Inbox", "StepOutput"),
+    },
+    "ici_run_steps": {
+        # the mesh bench loop's step body (the reference jits it without
+        # donation); its graph carries state and box between replays
+        "module": "dragonboat_tpu_torch/parallel/ici.py",
+        "function": "_run",
+        "argnums": (3, 4),
+        "params": ("state", "box"),
+        "donor_classes": ("ShardState", "Inbox"),
+        "result_classes": ("ShardState", "Inbox"),
+    },
+}
+
+
 class ShardState(NamedTuple):
     """Per-shard raft state; every field has a leading [G] axis."""
 

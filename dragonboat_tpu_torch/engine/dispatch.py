@@ -339,8 +339,11 @@ class SerialDispatch:
         }
         # per-instance telemetry wrappers (own counters; a capture counts
         # as the entry's compile)
-        self.entries = {name: _capacity.TRACKER.wrap(name, fn)
-                        for name, fn in self._fns.items()}
+        self.entries = {
+            "step": _capacity.TRACKER.wrap("step", self._fns["step"]),
+            "step_donated": _capacity.TRACKER.wrap(
+                "step_donated", self._fns["step_donated"]),
+        }
 
     def dispatch(self, state, inbox, inp, donate: bool):
         """One step.  ``donate=True`` routes through the donating entry
@@ -411,8 +414,12 @@ class MeshDispatch:
         self.pool = graphs.Pool()
         self._fns = {"serve_step": serve_step.fork(self.pool),
                      "serve_step_donated": serve_step_donated.fork(self.pool)}
-        self.entries = {name: _capacity.TRACKER.wrap(name, fn)
-                        for name, fn in self._fns.items()}
+        self.entries = {
+            "serve_step": _capacity.TRACKER.wrap(
+                "serve_step", self._fns["serve_step"]),
+            "serve_step_donated": _capacity.TRACKER.wrap(
+                "serve_step_donated", self._fns["serve_step_donated"]),
+        }
 
     def dispatch(self, state, inbox, inp, donate: bool):
         """Advance the mesh: host-staged inputs, device-routed messages.

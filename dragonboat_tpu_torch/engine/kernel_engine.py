@@ -358,13 +358,14 @@ class KernelEngine:
         self.send_message = send_message
         self.events = events or EventHub()
         self.mu = threading.RLock()
-        self.nodes: dict[int, KernelNode] = {}     # lane -> node
-        self.by_shard: dict[int, KernelNode] = {}
+        # lane -> node
+        self.nodes: dict[int, KernelNode] = {}     # guarded-by: _admit_mu
+        self.by_shard: dict[int, KernelNode] = {}  # guarded-by: _admit_mu
         # guards registration (nodes, by_shard, _free, _pending_inject)
         # so admissions need not wait for a step; order engine.mu ->
         # _admit_mu
         self._admit_mu = threading.Lock()
-        self._free = list(range(capacity - 1, -1, -1))
+        self._free = list(range(capacity - 1, -1, -1))  # guarded-by: _admit_mu
         self.state: ShardState = init_state(
             kp, capacity,
             replica_id=np.ones((capacity,), np.int32),
@@ -385,7 +386,7 @@ class KernelEngine:
         # lanes with possibly-pending host work (see mark_dirty); its
         # own tiny lock — NOT engine.mu (ingress holds node.mu and the
         # documented order is engine.mu -> node.mu)
-        self._dirty: set[int] = set()
+        self._dirty: set[int] = set()  # guarded-by: _dirty_mu
         self._dirty_mu = threading.Lock()
         # occupancy vector for the output activity mask (absent lanes
         # must not pass it — the -1 triple sentinel vs device term 0
@@ -393,11 +394,11 @@ class KernelEngine:
         self._occ_np = np.zeros((capacity,), bool)
         # rows that received staged proposals this step (bounds the
         # fate-reset and fate-processing loops)
-        self._staged_rows: set[int] = set()
+        self._staged_rows: set[int] = set()  # guarded-by: mu
         # nodes removed since the last step (same-thread evictions during
         # staging land here); step_all drains it instead of sweeping all
         # [capacity] rows for vanished registrations
-        self._removed_nodes: list[KernelNode] = []
+        self._removed_nodes: list[KernelNode] = []  # guarded-by: mu
         # first-call guard for the cross-engine compile serialization in
         # step_all (the class-wide _first_compile_mu)
         self._compiled_once = False
@@ -408,7 +409,7 @@ class KernelEngine:
         self._pid_np = np.zeros((capacity, kp.num_peers), np.int32)
         # admissions queued for the next step's batched injection
         # (lane -> (node, init, pids, kinds)); see _flush_injections
-        self._pending_inject: dict[int, tuple] = {}
+        self._pending_inject: dict[int, tuple] = {}  # guarded-by: _admit_mu
         # whole-engine tick rounds queued by the host ticker; each step
         # consumes ONE round as a vectorized [G]-bool broadcast (the
         # per-lane Python tick walk was ~25 s/round at 100k lanes).
@@ -499,7 +500,7 @@ class KernelEngine:
         # prev-columns describe a DIFFERENT occupant, so the probe must
         # re-seed them (ticks=0) or a fresh shard's lower term would
         # read as a bogus term_monotone violation
-        self._inv_dirty: set[int] = set()
+        self._inv_dirty: set[int] = set()  # guarded-by: mu
         _invariants.register_exposition(self.events.metrics.registry,
                                         lambda: self.last_invariants)
         # capacity rail (capacity.py): call-count wrappers around every
@@ -538,7 +539,7 @@ class KernelEngine:
             node.engine = self
             self.nodes[lane] = node
             self.by_shard[node.shard_id] = node
-            self._inject(lane, node, init)
+            self._pending_inject[lane] = self._inject(lane, node, init)
 
     def remove_shard(self, shard_id: int) -> KernelNode | None:
         with self.mu, self._admit_mu:
@@ -547,7 +548,9 @@ class KernelEngine:
                 return None
             self.nodes.pop(node.lane, None)
             self._free.append(node.lane)
-            self._clear_lane(node.lane)
+            self._inv_dirty.add(node.lane)
+            self._clear_lane(node.lane, self._pending_inject.pop(
+                node.lane, None) is not None)
             self._removed_nodes.append(node)
         return node
 
@@ -559,8 +562,9 @@ class KernelEngine:
         capture is deliberately left to its owner)."""
         stop_env_trace()
 
-    def _inject(self, lane: int, node: KernelNode, init: _LaneInit) -> None:
-        """Queue one lane injection; the next ``step_all`` flushes every
+    def _inject(self, lane: int, node: KernelNode, init: _LaneInit) -> tuple:
+        """One lane injection, returned for ``add_shard`` to queue under
+        the admission lock; the next ``step_all`` flushes every
         queued lane in ONE vectorized state update.  The eager form was
         ~30 full-[capacity] array copies PER admission — O(n·capacity)
         total, the first structure to fall over at 100k groups.  Host
@@ -579,8 +583,8 @@ class KernelEngine:
         self._lead_np[lane] = 0
         self._lead_term_np[lane] = 0
         self._occ_np[lane] = True
-        self._pending_inject[lane] = (node, init, pids, kinds)
         self.mark_dirty(lane)
+        return node, init, pids, kinds
 
     def _flush_injections(self, pending: dict) -> None:
         """One out-of-place ``index_put`` per state field for every
@@ -609,7 +613,8 @@ class KernelEngine:
             # the lane's state is written (admission does not hold
             # engine.mu, so marking there could let a probe re-seed the
             # lane before the write and compare across occupants after it)
-            self._inv_dirty.add(lane)
+            with self.mu:
+                self._inv_dirty.add(lane)
             pid_rows[j], kind_rows[j] = pids, kinds
             for e in init.entries:
                 lt_rows[j, e.index & (kp.log_cap - 1)] = e.term
@@ -703,9 +708,9 @@ class KernelEngine:
                 quiesce_epoch=put(s.quiesce_epoch, 0),
             )
 
-    def _clear_lane(self, lane: int) -> None:
-        self._inv_dirty.add(lane)
-        if self._pending_inject.pop(lane, None) is not None:
+    def _clear_lane(self, lane: int, queued: bool) -> None:
+        """Vacate a lane (``queued``: its injection was still queued)."""
+        if queued:
             # evicted before its injection ever flushed: the lane state
             # was never written, so there is nothing to clear on device
             self._kind_np[lane] = KP.K_ABSENT
@@ -714,14 +719,13 @@ class KernelEngine:
             self._occ_np[lane] = False
             return
         s = self.state
-        row = torch.tensor([lane], dtype=torch.int64, device=self.device)
         self.state = s._replace(
-            kind=_put_rows(s.kind, row, KP.K_ABSENT),
-            pid=_put_rows(s.pid, row, 0),
-            needs_host=_put_rows(s.needs_host, row, False),
+            kind=_put_rows(s.kind, lane, KP.K_ABSENT),
+            pid=_put_rows(s.pid, lane, 0),
+            needs_host=_put_rows(s.needs_host, lane, False),
             # a vacated lane must not linger in the fleet quiesced count
-            quiesce_on=_put_rows(s.quiesce_on, row, False),
-            quiesced=_put_rows(s.quiesced, row, False),
+            quiesce_on=_put_rows(s.quiesce_on, lane, False),
+            quiesced=_put_rows(s.quiesced, lane, False),
         )
         self._kind_np[lane] = KP.K_ABSENT
         self._pid_np[lane] = 0
@@ -758,18 +762,17 @@ class KernelEngine:
                 i += 1
         g = node.lane
         s = self.state
-        row = torch.tensor([g], dtype=torch.int64, device=self.device)
         with _capacity.METER.sanctioned("membership_up"):
             jp = _upload(pids[None, :], self.device)
             jk = _upload(kinds[None, :], self.device)
         self.state = s._replace(
-            pid=_put_rows(s.pid, row, jp),
-            kind=_put_rows(s.kind, row, jk),
+            pid=_put_rows(s.pid, g, jp),
+            kind=_put_rows(s.kind, g, jk),
             # the applied CC releases the one-in-flight gate (pycore
             # add_node/add_non_voting/... clear pending_config_change on
             # apply; without this a lane accepts exactly ONE config
             # change in its lifetime and drops every later one)
-            pending_cc=_put_rows(s.pending_cc, row, False),
+            pending_cc=_put_rows(s.pending_cc, g, False),
         )
         self._kind_np[g] = kinds
         self._pid_np[g] = pids
@@ -1016,12 +1019,11 @@ class KernelEngine:
 
     def _fleet_inbox_from(self) -> torch.Tensor:
         """[G, K] sender ids feeding the inbox-occupancy histogram: the
-        backend picks the host-staged builder (uploaded to the engine's
-        device here) or its carried box (already on the device)."""
-        src = self._dispatch.inbox_from(self._inbox_buf)
-        if isinstance(src, torch.Tensor):
-            return src
-        return _upload(src, self.device)
+        backend picks the host-staged builder (a host array, which the
+        reduction uploads inside its caller's sanctioned crossing, as the
+        reference's jitted reductions take it) or its carried box (already
+        on the device)."""
+        return self._dispatch.inbox_from(self._inbox_buf)
 
     def _collect_fleet_stats(self) -> None:
         """Decimated fleet telemetry: one reduction over the resident
@@ -1098,10 +1100,11 @@ class KernelEngine:
         if self._inv_digest is None:
             self._inv_digest = self._make_invariant_digest()
         with _capacity.METER.sanctioned("invariants_down"):
-            if self._inv_dirty:
-                lanes = _upload(np.array(sorted(self._inv_dirty), np.int64),
+            with self.mu:
+                dirty, self._inv_dirty = self._inv_dirty, set()
+            if dirty:
+                lanes = _upload(np.array(sorted(dirty), np.int64),
                                 self.device)
-                self._inv_dirty.clear()
                 d = self._inv_digest
                 self._inv_digest = d._replace(
                     ticks=_put_rows(d.ticks, lanes, 0))
@@ -1345,7 +1348,7 @@ class KernelEngine:
         # under a fresh ctx that nothing ever stages — its readers would
         # sit in pending until the timeout GC fires
         if residual or n.pending_reads.batching:
-            self._dirty.add(g)
+            self.mark_dirty(g)
         return work
 
     def _prop_target(self, n: KernelNode) -> tuple[int, KernelNode]:
@@ -1360,7 +1363,8 @@ class KernelEngine:
         """Stage cc + proposals into prop slots, remembering the origin
         node per slot so fates (drop/mirror) land on the right books."""
         tg, tn = self._prop_target(n)
-        self._staged_rows.add(tg)
+        with self.mu:
+            self._staged_rows.add(tg)
         slot = self._slot_cursor.get(tg, 0)
         if cc_entry is not None:
             if slot < inp.B:
@@ -1449,8 +1453,8 @@ class KernelEngine:
         # every processed lane re-stages once next step: multi-window
         # pipelines (apply batches, read books, ring compaction) advance
         # by re-examination, exactly as the full scan did
-        for g, _n in cand:
-            self._dirty.add(g)
+        with self._dirty_mu:
+            self._dirty.update(g for g, _n in cand)
         save_rows = [g for g, n in cand
                      if o["save_last"][g] >= o["save_first"][g]]
         lt_rows = {}
@@ -1839,15 +1843,20 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.clone() if device.type == "cpu" else t.to(device)
 
 
-def _put_rows(arr: torch.Tensor, rows: torch.Tensor, vals) -> torch.Tensor:
+def _put_rows(arr: torch.Tensor, rows, vals) -> torch.Tensor:
     """``arr`` with ``arr[rows] = vals`` (out of place; ``vals``
-    broadcasts over the selected rows and takes ``arr``'s dtype).  A
-    Python scalar is filled on ``arr``'s device, not copied from the
-    host."""
+    broadcasts over the selected rows and takes ``arr``'s dtype).
+    ``rows`` is an index tensor on ``arr``'s device, or one row as a
+    Python int (nothing is uploaded for it).  A Python scalar is filled on
+    ``arr``'s device, not copied from the host."""
     if isinstance(vals, torch.Tensor):
         v = vals.to(device=arr.device, dtype=arr.dtype)
     else:
         v = torch.full((), vals, dtype=arr.dtype, device=arr.device)
+    if isinstance(rows, int):
+        out = arr.clone()
+        out[rows:rows + 1] = v
+        return out
     return arr.index_put((rows,), v.expand((rows.shape[0],) + arr.shape[1:]))
 
 

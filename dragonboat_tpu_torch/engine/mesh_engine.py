@@ -38,7 +38,6 @@ from __future__ import annotations
 import threading
 
 import numpy as np
-import torch
 
 from dragonboat_tpu_torch import capacity as _capacity
 from dragonboat_tpu_torch import fabric as _fabric
@@ -166,7 +165,7 @@ class MeshEngine(KernelEngine):
             members[node.replica_id] = node
             self.nodes[row] = node
             self.by_shard[(node.shard_id, node.replica_id)] = node
-            self._inject(row, node, init)
+            self._pending_inject[row] = self._inject(row, node, init)
             self._note_link_classes(node)
 
     def remove_replica(self, node: KernelNode) -> KernelNode | None:
@@ -193,7 +192,9 @@ class MeshEngine(KernelEngine):
         members.pop(node.replica_id, None)
         self.nodes.pop(node.lane, None)
         self._removed_nodes.append(node)
-        self._clear_lane(node.lane)
+        self._inv_dirty.add(node.lane)
+        self._clear_lane(node.lane, self._pending_inject.pop(
+            node.lane, None) is not None)
         self._dispatch.set_cut(node.lane, False)
         if not members:
             lane = self._lane_of.pop(node.shard_id, None)
@@ -394,9 +395,7 @@ class MeshEngine(KernelEngine):
         # (pycore clears pending_config_change per replica at apply) — a
         # lagging follower's apply must not release the leader row's
         # gate while a newer CC is still uncommitted there
-        s = s._replace(pending_cc=_put_rows(
-            s.pending_cc,
-            torch.tensor([node.lane], dtype=torch.int64, device=dev), False))
+        s = s._replace(pending_cc=_put_rows(s.pending_cc, node.lane, False))
         # shared peer books: members apply the same CCs at different
         # steps, so only the NEWEST applied membership may write them —
         # a lagging member's view would roll the group's books back

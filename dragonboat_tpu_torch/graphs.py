@@ -287,7 +287,7 @@ class Compiled:
         self.static_argnums = tuple(sorted(static_argnums))
         self.donate_argnums = tuple(sorted(donate_argnums))
         self.pool = pool or DEFAULT_POOL
-        self._graphs: dict = {}
+        self._graphs: dict = {}  # guarded-by: _mu
         self._last: _Graph | None = None
         self._mu = threading.RLock()
         self.__name__ = getattr(fn, "__name__", "compiled")

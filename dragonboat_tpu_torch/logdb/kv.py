@@ -70,11 +70,22 @@ class _SSTable:
             magic, count = _SST_HDR.unpack(hdr)
             if magic != SST_MAGIC:
                 raise CorruptKVError(f"{self.path}: bad magic")
+            # a flipped length byte must not read gigabytes before the
+            # checksum can refuse the table: bound every record's lengths
+            # by the bytes the file still holds
+            size = f.seek(0, 2)
+            f.seek(_SST_HDR.size)
             crc = 0
             off = _SST_HDR.size
             for _ in range(count):
                 rh = f.read(_REC.size)
+                if len(rh) < _REC.size:
+                    raise CorruptKVError(f"{self.path}: short record")
                 klen, vlen = _REC.unpack(rh)
+                left = size - off - _REC.size
+                if klen > left or vlen > left - klen:
+                    raise CorruptKVError(
+                        f"{self.path}: record length past end of file")
                 key = f.read(klen)
                 crc = zlib.crc32(rh, crc)
                 crc = zlib.crc32(key, crc)

@@ -17,13 +17,15 @@ names the CPU (``NodeHost(..., device="cpu")``).  Mesh-resident shards
 process-wide ``MeshEngine``, whose mesh positions all live on that same
 device (``parallel/ici.py``).
 
-Off this port's path, each raising at construction with the ROADMAP.md
-item that brings it: gossip addressing (``address_by_node_host_id``, item
-14) and the JAX compile cache (``ExpertConfig.compile_cache``: eager
-PyTorch compiles nothing, item 13).  The default ``ExpertConfig`` runs as
-is: the engine's decimated device reductions feed ``shard_info``'s device
-row and the opt-in ``enable_metrics`` endpoint (``/metrics``,
-``/healthz``, ``/debug/*``).
+Replicas are addressed by raft address or, with
+``address_by_node_host_id``, by NodeHostID through the gossip view
+(``gossip.py``), over either transport (chan or ``transport/tcp.py``).
+Off this port's path, raising at construction with the ROADMAP.md item
+that names it: the JAX compile cache (``ExpertConfig.compile_cache``: CUDA
+graphs are captured anew in each process, item 13).  The default
+``ExpertConfig`` runs as is: the engine's decimated device reductions
+feed ``shard_info``'s device row and the opt-in ``enable_metrics``
+endpoint (``/metrics``, ``/healthz``, ``/debug/*``).
 """
 
 from __future__ import annotations
@@ -90,9 +92,6 @@ def _refuse_off_path(nhconfig: NodeHostConfig) -> None:
     """Raise for the NodeHost settings the port does not carry yet, each
     naming the ROADMAP.md item that brings it (never skipped silently)."""
     ex = nhconfig.expert
-    if nhconfig.address_by_node_host_id:
-        raise ValueError("address_by_node_host_id: gossip addressing is not "
-                         "ported yet (ROADMAP.md Queue 1 item 14)")
     if ex.compile_cache:
         raise ValueError("ExpertConfig.compile_cache: the JAX compile cache "
                          "has no counterpart in eager PyTorch (ROADMAP.md "
@@ -184,9 +183,20 @@ class NodeHost:
                 nhconfig.logdb_factory.create()  # type: ignore[union-attr]
                 if nhconfig.logdb_factory else MemLogDB()
             )
-        # static addressing only: gossip (address_by_node_host_id) is
-        # refused above
-        self.registry = Registry()
+        if nhconfig.address_by_node_host_id:
+            # dynamic addressing: targets are NodeHostIDs, resolved through
+            # the gossip view (registry/gossip.go:99)
+            from dragonboat_tpu_torch.gossip import GossipManager, GossipRegistry
+
+            self.registry = GossipRegistry(GossipManager(
+                self.id, nhconfig.raft_address,
+                nhconfig.gossip.bind_address,
+                nhconfig.gossip.advertise_address,
+                list(nhconfig.gossip.seed),
+                shard_info_fn=self._local_shard_views,
+            ))
+        else:
+            self.registry = Registry()
         self.events = EventHub(
             raft_listener=nhconfig.raft_event_listener,
             system_listener=nhconfig.system_event_listener,
@@ -1471,9 +1481,10 @@ class NodeHost:
     def get_node_host_registry(self):
         """GetNodeHostRegistry (nodehost.go:463): (registry, ok) — ok
         only when gossip addressing is active (the registry then carries
-        other hosts' metadata).  The port has no gossip addressing
-        (ROADMAP.md Queue 1 item 14), so ok is always False."""
-        return self.registry, False
+        other hosts' metadata)."""
+        from dragonboat_tpu_torch.gossip import GossipRegistry
+
+        return self.registry, isinstance(self.registry, GossipRegistry)
 
     @property
     def raft_address(self) -> str:
@@ -1702,6 +1713,27 @@ class NodeHost:
         raise RequestError(f"log query failed: {r.code.name}")
 
     # -- info ------------------------------------------------------------
+
+    def _local_shard_views(self):
+        """This host's shards as ShardViews for the gossip exchange
+        (view.go:77 toShardViewList): replica addresses come from the
+        replicated membership, leadership from the live node (a
+        device-resident node reads the engine's leader edge)."""
+        from dragonboat_tpu_torch.gossip import ShardView
+
+        with self.mu:
+            nodes = list(self.nodes.values())
+        out = []
+        for n in nodes:
+            mb = n.sm.get_membership()
+            out.append(ShardView(
+                shard_id=n.shard_id,
+                replicas=dict(mb.addresses),
+                config_change_index=mb.config_change_id,
+                leader_id=n.leader_id(),
+                term=n.node_term(),
+            ))
+        return out
 
     def get_node_host_info(self) -> NodeHostInfo:
         with self.mu:

@@ -162,7 +162,9 @@ def test_health_differential_equals_reference(mutated_cluster):
     with eng.mu:
         st = type(eng.state)(*(None if v is None else v.clone()
                                for v in eng.state))
-        inbox = eng._fleet_inbox_from().clone()
+        # the serial engine's staged inbox: a host array, as the
+        # reference's (the reduction uploads it)
+        inbox = torch.as_tensor(eng._fleet_inbox_from()).clone()
         digest = health.HealthDigest(*(v.clone() for v in eng._health_digest))
         th, k = eng.health_thresholds, eng.health_top_k
     got, _ = health.fleet_health(st, inbox, digest, thresholds=th, k=k)

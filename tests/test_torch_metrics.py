@@ -143,7 +143,8 @@ def test_shard_info_matches_device_row_recount():
         for f in ("role", "term", "vote", "leader", "committed", "applied",
                   "last", "stable", "processed", "snap_index", "snap_term"):
             assert got[f] == int(state_h[f][g]), f
-        assert got["inbox_occ"] == int((inbox.numpy()[g] != 0).sum())
+        assert got["inbox_occ"] == int(
+            (convert.tensor_to_numpy(inbox)[g] != 0).sum())
         for f in ("leaderless_ticks", "stall_ticks", "lag_ticks",
                   "churn_score", "runaway_ticks"):
             assert got[f] == int(digest_h[f][g]), f

@@ -23,10 +23,13 @@ from dragonboat_tpu_torch import model_check as mc
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: mutations no port leg catches: the reference assigns them to its static
-#: safety pass (tests/test_safety.py STATIC_OWNER, RS003 and RS004), which
-#: is not ported yet (ROADMAP Queue 1, item 13)
-STATIC_ONLY = {"skip_vote_persist": "RS003", "truncate_committed": "RS004"}
+#: the seeded bugs the port's static safety pass owns, by rule (the
+#: reference's tests/test_safety.py STATIC_OWNER)
+STATIC_OWNER = {
+    "skip_vote_persist": "RS003",
+    "commit_without_quorum": "RS002",
+    "truncate_committed": "RS004",
+}
 
 
 def _load_reference():
@@ -127,14 +130,36 @@ def test_drifted_snippet_raises(monkeypatch):
 def test_every_seeded_bug_is_caught_by_a_port_leg_or_named():
     """The model checker owns double_vote and quiesce_campaigns and
     catches commit_without_quorum, which the runtime probe also catches
-    (tests/test_torch_chaos.py); the static pass that owns the other two
-    in the reference is not ported."""
-    from tests.test_safety import STATIC_OWNER
+    (tests/test_torch_chaos.py); the port's static safety pass owns
+    skip_vote_persist, commit_without_quorum and truncate_committed, as
+    the reference's does."""
+    from tests.test_safety import STATIC_OWNER as REF_STATIC_OWNER
 
     checker_owned = {"double_vote", "quiesce_campaigns", "commit_without_quorum"}
     probe_owned = {"commit_without_quorum"}
-    assert set(mc.MUTATIONS) == checker_owned | probe_owned | set(STATIC_ONLY)
-    assert {k: STATIC_OWNER[k] for k in STATIC_ONLY} == STATIC_ONLY
+    assert set(mc.MUTATIONS) == checker_owned | probe_owned | set(STATIC_OWNER)
+    assert STATIC_OWNER == REF_STATIC_OWNER
+
+
+@pytest.mark.parametrize("mutation", sorted(STATIC_OWNER))
+def test_static_rule_catches_mutation(tmp_path, mutation):
+    """The port's own find/replace pair applied to a copy of the port's
+    kernel is caught by the rule that owns it."""
+    from dragonboat_tpu_torch.analysis import safety
+
+    find, replace = mc.MUTATIONS[mutation]
+    core = tmp_path / "dragonboat_tpu_torch" / "core"
+    core.mkdir(parents=True)
+    for name in ("kstate.py", "kernel.py"):
+        with open(os.path.join(REPO, "dragonboat_tpu_torch", "core", name),
+                  encoding="utf-8") as f:
+            src = f.read()
+        if name == "kernel.py":
+            assert src.count(find) == 1
+            src = src.replace(find, replace)
+        (core / name).write_text(src)
+    rules = {f.rule for f in safety.run(str(tmp_path), dynamic=False)}
+    assert rules == {STATIC_OWNER[mutation]}, (mutation, rules)
 
 
 def test_cli_on_cpu(capsys):

@@ -37,6 +37,15 @@ def test_port_imports_no_jax_and_no_reference_package():
         # the verification harnesses: chaos runner and model checker
         import dragonboat_tpu_torch.chaos  # noqa: F401
         import dragonboat_tpu_torch.model_check  # noqa: F401
+        # gossip addressing, the TCP transport, the history recorder and
+        # the analysis passes (the lint driver's own check is in
+        # tests/test_torch_analysis.py)
+        import dragonboat_tpu_torch.gossip  # noqa: F401
+        import dragonboat_tpu_torch.history  # noqa: F401
+        import dragonboat_tpu_torch.transport.tcp  # noqa: F401
+        from dragonboat_tpu_torch.analysis import (  # noqa: F401
+            common, concurrency, contracts, determinism, engine_unity,
+            safety, transfer)
         kp = bl.sm_params(3, device="cpu")
         st, box = bl.elect_all(kp, 3, bl.make_cluster(kp, 2, 3, device="cpu"))
         kv, kvs = bl.make_device_sm(2, 3, table_cap=128, device="cpu")
@@ -367,16 +376,45 @@ def test_nodehost_refuses_off_path_settings():
 
 
 def test_gossip_addressing_is_refused():
-    from dragonboat_tpu_torch.config import GossipConfig, NodeHostConfig
+    """Gossip addressing runs on the port (tests/test_torch_gossip.py); it
+    is refused where the reference refuses it: with no gossip config
+    (the reference's test_gossip_required_for_nhid_addressing), or with
+    no bind address."""
+    from dragonboat_tpu_torch.config import (
+        ConfigError,
+        GossipConfig,
+        NodeHostConfig,
+    )
     from dragonboat_tpu_torch.nodehost import NodeHost
 
-    cfg = NodeHostConfig(raft_address="rules-gossip-1",
-                         address_by_node_host_id=True,
-                         gossip=GossipConfig(bind_address="127.0.0.1:0",
-                                             advertise_address="127.0.0.1:1",
-                                             seed=["127.0.0.1:2"]))
-    with pytest.raises(ValueError, match="item 14"):
-        NodeHost(cfg, auto_run=False, device="cpu")
+    for gossip in (GossipConfig(),
+                   GossipConfig(advertise_address="127.0.0.1:1",
+                                seed=["127.0.0.1:2"])):
+        cfg = NodeHostConfig(raft_address="rules-gossip-1",
+                             address_by_node_host_id=True, gossip=gossip)
+        with pytest.raises(ConfigError, match="gossip"):
+            NodeHost(cfg, auto_run=False, device="cpu")
+
+
+def test_port_kv_refuses_corrupt_sst(tmp_path):
+    """The port's ``logdb/kv.py`` departs from the reference on corrupt
+    input: a flipped length byte of an SST record raises CorruptKVError
+    instead of reading its ~68 GB (the reference raises MemoryError)."""
+    from dragonboat_tpu_torch.logdb.kv import CorruptKVError, OrderedKV
+
+    kv = OrderedKV(str(tmp_path))
+    kv.put(b"a", b"1" * 64)
+    kv.flush()
+    kv.close()
+    sst = [f for f in os.listdir(tmp_path) if f.endswith(".kv")][0]
+    path = os.path.join(tmp_path, sst)
+    with open(path, "r+b") as f:
+        f.seek(20)
+        b = f.read(1)
+        f.seek(20)
+        f.write(bytes([b[0] ^ 0x10]))
+    with pytest.raises(CorruptKVError, match="past end of file"):
+        OrderedKV(str(tmp_path))
 
 
 def test_kernel_library_and_counts_are_thread_safe(monkeypatch, tmp_path):
@@ -428,9 +466,10 @@ def test_host_layer_copies_match_the_reference():
 
 
 def test_hand_ports_differ_from_the_reference_only_by_their_recorded_diffs():
-    """The chaos runner and the model checker are ported by hand from one
-    reference file each; an edit on either side that the recorded diff
-    under tests/hand_ports/ does not hold shows as drift."""
+    """The chaos runner, the model checker, the analysis passes and
+    ``logdb/kv`` are ported by hand from one reference file each; an edit
+    on either side that the recorded diff under tests/hand_ports/ does
+    not hold shows as drift."""
     from dragonboat_tpu_torch import _hostcopy
 
     assert _hostcopy.hand_drift() == []
@@ -438,5 +477,14 @@ def test_hand_ports_differ_from_the_reference_only_by_their_recorded_diffs():
     # the runner's only JAX code is the health differential's device_get
     removed = [ln for ln in runner.splitlines() if ln.startswith("-")]
     assert any("jax.device_get" in ln for ln in removed)
+    # every analysis pass's scope names the port's files, never the
+    # reference's
+    for rel in _hostcopy.HAND_PORTS:
+        if rel.startswith("analysis/"):
+            added = [ln for ln in _hostcopy.hand_diff(rel).splitlines()
+                     if ln.startswith("+")]
+            assert added, rel
+            text = (_hostcopy.PORT / rel).read_text()
+            assert '"dragonboat_tpu/' not in text, rel
     assert not any("jax" in ln for ln in runner.splitlines()
                    if ln.startswith("+") and "JAX" not in ln)
