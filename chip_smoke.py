@@ -180,11 +180,35 @@ Phases, each printing one line (any failure exits non-zero):
    K1, the transfer leg under the CUDA sync guard, KC007 on card
    tensors): each pass's findings (all 0) and wall seconds ``[lint]``;
    K1's entry timed on the cell's inputs ``[gossip_tcp_kernel]``;
-11. the ``kernels`` JSON line, one row per kernel with the numbers of the
+11. scale: ``scripts/scale_100k.py``'s two rungs on the port
+   (``dragonboat_tpu_torch.scale_100k``) at their full width, never
+   cut.  Phase A at SCALE_GROUPS = 100,000 groups x 3 (300,000 rows,
+   ``bench_params(3)``, two calls of 5 steps): the rung's PHASE_A fields
+   (predicted = measured bytes, one capture and no retrace, step ms), the
+   capture's seconds, the peak device bytes through the capture and
+   through the replays, exactly 16 K1 and 1 K2 launches a step, K1 and K2
+   held bitwise against their plain arms on inputs tapped from the rung
+   ([300000, 3]; six [300000, 10] fields by two [100000, 3, 3] lanes),
+   then from the rung's final state one graphed step against one eager
+   step, every leaf (the graph dropped first, so the card holds one
+   arm's temporaries at a time) ``[scale_a]``.  Phase B at 100,000
+   device-resident shards on one NodeHost (the default ExpertConfig with
+   kernel_capacity 100,000, MemLogDB, a null state machine, auto_run off):
+   every PHASE_B field (predicted = measured bytes, one capture and no
+   retrace, 100,000 leaders, 1,000 proposals queued, committed_total =
+   2 x shards + proposals), the engine step over the election pump, the
+   host ms of the step's phases (the output pass), K1 exactly as many an
+   engine step as a CPU step at the engine's geometry makes (21), plus
+   the invariant probe's, held against its plain arm on tapped inputs,
+   and no K2 ``[scale_b]``; the kernels' entries timed on the rungs'
+   inputs ``[scale_kernel]``;
+12. the ``kernels`` JSON line, one row per kernel with the numbers of the
    entry the main path launches (``path`` "slice": launches phase 5's;
    ``path`` "mesh": launches phase 8's NodeHost cell's; ``path``
    "verify": launches phase 9's; ``path`` "gossip_tcp": launches phase
-   10's cell's), then the final ``{"ok": true, ...}`` line.
+   10's cell's; ``path`` "scale": launches phase 11's phase A; ``path``
+   "scale_b": K1's launches in phase 11's phase B), then the final
+   ``{"ok": true, ...}`` line.
 
 Every number the run takes is printed on these lines.  Needs no network
 and no JAX, and takes no arguments.  ``--compare-workers [ROUNDS]`` runs
@@ -197,7 +221,9 @@ the same cell graphed with the engines' shared step lock and with a null
 lock in its place, in turn, ROUNDS times each.  ``--mesh`` runs only phases 1, 2 and 8; ``--verify``
 only phases 1, 2 and 9, with every fast seed, the depth-1 schedule, the
 hotspot and the wide schedule; ``--gossip [SHARDS]`` only phases 1, 2
-and 10, its cell at SHARDS shards (GT_SHARDS unless given).
+and 10, its cell at SHARDS shards (GT_SHARDS unless given); ``--scale
+[GROUPS]`` only phases 1, 2 and 11, at GROUPS (SCALE_GROUPS unless
+given).
 """
 
 from __future__ import annotations
@@ -291,6 +317,12 @@ WIDE_SHARDS, WIDE_WRITES, WIDE_SEED, WIDE_STEP_S, WIDE_LIMIT_S = 1024, 2, 7, 1.0
 # and 1,252 ms, the output pass most of it: the hub flushes every
 # message as its own TCP frame from the engine's thread)
 GT_SHARDS = 512
+# phase 11, the 100k-group capacity rungs of scripts/scale_100k.py on the
+# port (dragonboat_tpu_torch.scale_100k) at their full width, never cut:
+# phase A at SCALE_GROUPS x 3 with its SCALE_STEPS of 5 steps a timed call,
+# phase B at SCALE_GROUPS device-resident shards on one NodeHost with its
+# wave of proposals to shards 1-1000
+SCALE_GROUPS, SCALE_A_STEPS, SCALE_WAVE = 100_000, 5, 1000
 # the entry of each kernel that the main path launches
 MAIN_PATH_ENTRIES = ("commit_quorum", "gather_lanes_multi", "kv_apply")
 # the ExpertConfig switches that turn the three decimated reductions off
@@ -631,6 +663,26 @@ def _k2(torch, dev, gen) -> dict:
     }
 
 
+def _k2_bytes(fields, lanes, outs) -> int:
+    """Bytes gather_lanes_multi must move on these inputs: the lanes read
+    and the outputs written once, and of each field only the elements the
+    lanes pick, each distinct (row, column) once (the sentinel K picks
+    nothing).  A route picks at most 6 of a row's 10 slots, so the whole
+    fields are not what the function needs."""
+    import torch
+
+    N, Rt, Rs = lanes[0].shape
+    K = fields[0].shape[1]
+    dev = lanes[0].device
+    row = (torch.arange(N, device=dev)[:, None, None] * Rs
+           + torch.arange(Rs, device=dev)[None, None, :]).expand(N, Rt, Rs)
+    keys = torch.cat([(row * K + lane.long())[(lane >= 0) & (lane < K)]
+                      for lane in lanes])
+    picked = int(torch.unique(keys).numel())
+    return (picked * sum(f.element_size() for f in fields)
+            + sum(t.numel() * t.element_size() for t in (*lanes, *outs)))
+
+
 def _pick_before(fields, lanes):
     """The route's response pick before gather_lanes_multi: per lane and
     field, the field as [(n, s), K] i32, the lane transposed into a
@@ -685,7 +737,7 @@ def _k2_multi(torch, dev) -> dict:
     mism += sum(a.dtype != b.dtype or a.shape != b.shape for a, b in zip(got, ref))
     err = max(max_abs_err(torch, a, b) for a, b in zip(got, ref))
     K = fields[0].shape[1]
-    nbytes = sum(t.numel() * t.element_size() for t in (*fields, *lanes, *got))
+    nbytes = _k2_bytes(fields, lanes, got)
     N, Rt, Rs = lanes[0].shape
     b_ms, b_by = bound(nbytes, N * Rt * Rs * len(lanes) * (2 + 2 * len(fields)))
     return {
@@ -2450,8 +2502,20 @@ def _nh_profile(torch, hosts, shards) -> dict:
 
 
 def _nh_close(hosts) -> None:
+    """Close the hosts and wait for every engine and step-worker thread
+    of theirs to end: ``close()`` joins each for at most 5 s, and a
+    thread still inside a step would land that step's kernel calls in the
+    next cell's counts (its step counter is the old cell's, its K1 tap
+    the new one's)."""
     for nh in hosts.values():
         nh.close()
+    threads = [t for nh in hosts.values()
+               for t in (nh._engine_thread, *nh._workers) if t is not None]
+    deadline = time.monotonic() + 120.0
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+    alive = [t.name for t in threads if t.is_alive()]
+    check(not alive, f"host threads still running 120 s after close: {alive}")
 
 
 def _reduction_snapshots(eng) -> tuple:
@@ -3123,7 +3187,7 @@ def _mesh_rows(torch, k1_inputs, k2_inputs, launches,
     fields, lanes = k2_inputs[-1]
     got = _flat(fk.gather_lanes_multi(fields, lanes))
     ref = _flat(fk.gather_lanes_multi_plain(fields, lanes))
-    nbytes = sum(t.numel() * t.element_size() for t in (*fields, *lanes, *got))
+    nbytes = _k2_bytes(fields, lanes, got)
     N, Rt, Rs = lanes[0].shape
     b_ms, b_by = bound(nbytes, N * Rt * Rs * len(lanes) * (2 + 2 * len(fields)))
     k2 = {"name": "gather_lanes_multi", "kernel": "gather_lanes", "route": "cuda",
@@ -3811,6 +3875,209 @@ def phase_gossip_tcp(torch, dev, smi: str,
     return [row]
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the 100k-group capacity rungs (dragonboat_tpu_torch.scale_100k)
+# ---------------------------------------------------------------------------
+
+
+def _scale_eager_vs_graphed(torch, kp, state, box) -> dict:
+    """From phase A's final state, one graphed step (a fresh capture of the
+    untapped body) against one eager step (``graphs.eager()``), every
+    state and inbox leaf.  The graphed result is copied out and its graph
+    dropped before the eager step runs, so the card holds one arm's
+    temporaries at a time; an eager step that still does not fit is
+    reported, with the bytes it asked for, and not compared."""
+    from dragonboat_tpu_torch import bench_loop as bl
+    from dragonboat_tpu_torch import graphs
+
+    graphs.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    graphed = graphs.fresh(bl._run(kp, REPLICAS, True, True, state, box))
+    torch.cuda.synchronize()
+    out = {"graphed_step_s": time.perf_counter() - t,
+           "graphed_peak_bytes": torch.cuda.max_memory_allocated()}
+    graphs.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    try:
+        with graphs.eager():
+            eager = bl._run(kp, REPLICAS, True, True, state, box)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        out.update(eager="did not fit", eager_error=str(e).splitlines()[0],
+                   eager_peak_bytes=torch.cuda.max_memory_allocated())
+        del graphed
+        torch.cuda.empty_cache()
+        return out
+    out.update(eager_step_s=time.perf_counter() - t,
+               eager_peak_bytes=torch.cuda.max_memory_allocated(),
+               leaf_mismatches=json.dumps(_same(torch, eager, graphed)),
+               leaves=len(graphs.leaves_of(graphed)))
+    del eager, graphed
+    torch.cuda.empty_cache()
+    return out
+
+
+def _scale_a(torch, dev, groups: int) -> dict:
+    """Phase A at ``groups`` x 3 on the card: the rung's line, K1 and K2
+    counted per step and tapped, the capture's seconds and the peak
+    device bytes through the capture and through the replays, then one
+    eager step against one graphed step from the rung's final state."""
+    from dragonboat_tpu_torch import graphs, kernels, scale_100k
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    taps, calls, untap = _loop_taps()
+    kernels.reset_launches()
+    try:
+        line, extra = scale_100k.phase_a(groups, steps=SCALE_A_STEPS, device=dev)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        counted = dict(calls)
+    finally:
+        untap()
+    kp = extra["kp"]
+    captures = extra["capture_s"]
+    per_step = _check_path_launches("scale_a", launches, counted, kp)
+    steps = counted["step"]
+    held = _loop_held(torch, "scale_a", taps)
+    cmp = _scale_eager_vs_graphed(torch, kp, extra["state"], extra["box"])
+    del extra["state"], extra["box"]
+    graphs.clear()
+    torch.cuda.empty_cache()
+    out = {**line, "capture_s": sum(captures), "captures_timed": len(captures),
+           "first_call_s": extra["first_call_s"],
+           "capture_peak_bytes": extra["capture_peak_bytes"],
+           "replay_peak_bytes": extra["replay_peak_bytes"],
+           "step_ms_unrounded": extra["step_s"] * 1e3,
+           "steps_driven": steps, "k1_per_step": launches["quorum_match"] / steps,
+           "k2_per_step": launches["gather_lanes"] / steps,
+           "k1_expected_per_step": per_step,
+           "launches": json.dumps(launches, separators=(",", ":")),
+           **held, **cmp, "seconds": time.perf_counter() - t0,
+           "_taps": taps, "_launches": launches}
+    check(line["predicted_bytes"] == line["measured_bytes"],
+          f"scale_a: predicted {line['predicted_bytes']} != measured "
+          f"{line['measured_bytes']} bytes")
+    check(line["dispatch_compiles"] == 1 and line["dispatch_retraces"] == 0
+          and len(captures) == 1,
+          f"scale_a: {line['dispatch_compiles']} captures, "
+          f"{line['dispatch_retraces']} retraces, {len(captures)} timed")
+    check(steps == 2 * SCALE_A_STEPS, f"scale_a: {steps} steps counted")
+    check(per_step == 16, f"scale_a: {per_step} K1 launches a step, not 16")
+    R = REPLICAS
+    check(held["k1_held_shapes"] == json.dumps([[groups * R, R]]),
+          f"scale_a: K1 tapped at {held['k1_held_shapes']}")
+    check(json.loads(held["k2_held_shapes"])[0] == [groups * R, 10],
+          f"scale_a: K2 tapped at {held['k2_held_shapes']}")
+    lanes = {tuple(t.shape) for _f, ls in taps[1]["inputs"] for t in ls}
+    check(lanes == {(groups, R, R)}, f"scale_a: K2 lanes tapped at {lanes}")
+    check(cmp.get("eager") == "did not fit" or cmp["leaf_mismatches"] == "[]",
+          f"scale_a: graphed != eager at leaves {cmp.get('leaf_mismatches')}")
+    return out
+
+
+def _scale_b(torch, dev, groups: int) -> dict:
+    """Phase B at ``groups`` device-resident shards on one NodeHost: the
+    rung's line, the engine step over the pump, the host ms of the step's
+    phases, K1 counted per engine step (and by the invariant probe) and
+    tapped, no K2 (no router behind the engine)."""
+    from dragonboat_tpu_torch import kernels, scale_100k
+    from dragonboat_tpu_torch.core import invariants as inv
+    from dragonboat_tpu_torch.core import kernel as K
+    from dragonboat_tpu_torch.engine import kernel_engine
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    step_tap, untap_step = _tap(K, "commit_quorum", K1_TAP_EVERY)
+    probe_tap, untap_probe = _tap(inv, "quorum_match", 1)
+    engine_steps: dict = {}
+    uncount = [_count_calls(kernel_engine, attr, engine_steps)
+               for attr in ("kernel_step", "kernel_step_donated")]
+    spans: dict = {}
+    unspan = _time_spans(spans)
+    try:
+        line, extra = scale_100k.phase_b(groups, device=dev)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        untap_step()
+        untap_probe()
+        for u in uncount:
+            u()
+        unspan()
+    steps = sum(engine_steps.values())
+    per_step = _k1_calls_per_step(extra["kp"])
+    pump_ms = [s * 1e3 for s in extra["pump_step_s"]]
+    out = {**line, **_span_stats(spans),
+           "pump_step_ms_p50": float(np.percentile(pump_ms, 50)),
+           "pump_step_ms_max": max(pump_ms),
+           "pump_step_ms": json.dumps([round(x, 1) for x in pump_ms]),
+           "idle_step_ms": json.dumps([round(x * 1e3, 2) for x in extra["idle_step_s"]]),
+           "engine_steps": steps, "k1_launches": launches["quorum_match"],
+           "k1_step_calls": step_tap["calls"], "k1_probe_calls": probe_tap["calls"],
+           "k1_per_engine_step": per_step,
+           "k2_launches": launches["gather_lanes"],
+           "launches": json.dumps(launches, separators=(",", ":")),
+           **_tapped(torch, step_tap["inputs"], "k1_tapped", "commit_quorum"),
+           "max_memory_allocated": peak, "seconds": time.perf_counter() - t0,
+           "_taps": step_tap["inputs"], "_launches": launches}
+    torch.cuda.empty_cache()
+    check(line["predicted_bytes"] == line["measured_bytes"],
+          f"scale_b: predicted {line['predicted_bytes']} != measured "
+          f"{line['measured_bytes']} bytes")
+    check(line["dispatch_compiles"] == 1 and line["dispatch_retraces"] == 0,
+          f"scale_b: {line['dispatch_compiles']} captures, "
+          f"{line['dispatch_retraces']} retraces")
+    check(line["leaders"] == line["shards"] == groups,
+          f"scale_b: {line['leaders']} leaders of {line['shards']} shards")
+    check(line["proposals_queued"] == min(groups, SCALE_WAVE),
+          f"scale_b: {line['proposals_queued']} proposals queued")
+    check(line["committed_total"] == 2 * line["shards"] + line["proposals_queued"],
+          f"scale_b: committed_total {line['committed_total']}")
+    check(out["k1_step_calls"] + out["k1_probe_calls"] == out["k1_launches"],
+          "scale_b: K1's launches are not the step's and the probe's calls")
+    check(out["k1_step_calls"] == per_step * steps,
+          f"scale_b: {out['k1_step_calls']} K1 launches in {steps} engine steps, "
+          f"not {per_step} a step")
+    check(out["k1_tapped_mismatches"] == 0, "scale_b: K1 differs from its plain arm")
+    check(out["k2_launches"] == 0, "scale_b: K2 launched with no router")
+    return out
+
+
+def phase_scale(torch, dev, smi: str, groups: int = SCALE_GROUPS) -> list[dict]:
+    """Phase 11: ``scripts/scale_100k.py``'s two rungs on the port at
+    ``groups`` (SCALE_GROUPS unless given; never cut): phase A at groups x
+    3, phase B at groups device-resident shards on one NodeHost.  Returns
+    the kernels line's scale rows."""
+    t0 = time.perf_counter()
+    a = _scale_a(torch, dev, groups)
+    taps, launches = a.pop("_taps"), a.pop("_launches")
+    say("scale_a", **a, card=json.dumps(smi))
+    rows = _mesh_rows(torch, taps[0]["inputs"], taps[1]["inputs"], launches, "scale")
+    del taps
+    b = _scale_b(torch, dev, groups)
+    b_taps, b_launches = b.pop("_taps"), b.pop("_launches")
+    say("scale_b", **b, card=json.dumps(smi))
+    row = _k1_row(torch, b_taps, b_launches, "scale_b")
+    check(row["max_abs_err"] == 0, "scale_b: commit_quorum differs from its plain arm")
+    rows.append(row)
+    for r in rows:
+        say("scale_kernel", **{k: v for k, v in r.items() if k != "timing"},
+            timing=json.dumps(r["timing"]))
+    say("scale_total", seconds=time.perf_counter() - t0)
+    return rows
+
+
 def compare_workers(torch, dev, rounds: int) -> int:
     """``python3 chip_smoke.py --compare-workers [ROUNDS]``: the NodeHost
     cell under the reference's EngineConfig and under one step worker, in
@@ -3892,6 +4159,10 @@ def main() -> int:
         phase_gossip_tcp(torch, dev, device["nvidia_smi"],
                          int((sys.argv[2:] or [GT_SHARDS])[0]))
         return 0
+    if sys.argv[1:2] == ["--scale"]:
+        phase_scale(torch, dev, device["nvidia_smi"],
+                    int((sys.argv[2:] or [SCALE_GROUPS])[0]))
+        return 0
     rows = phase_kernels(torch, dev)
     phase_parity(torch, dev)
     launches = phase_slice(torch, dev)
@@ -3900,6 +4171,7 @@ def main() -> int:
     mesh_rows = phase_mesh(torch, dev, device["nvidia_smi"])
     verify_rows = phase_verify(torch, dev, device["nvidia_smi"], full=False)
     gossip_rows = phase_gossip_tcp(torch, dev, device["nvidia_smi"])
+    scale_rows = phase_scale(torch, dev, device["nvidia_smi"])
     say("total", seconds=time.perf_counter() - t0)
     # one row per kernel: the numbers of the entry the main path launches
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
@@ -3910,7 +4182,7 @@ def main() -> int:
         for r in rows if r["name"] in MAIN_PATH_ENTRIES] + [
         {"name": r["kernel"], "entry": r["name"], "path": r["path"],
          "launches": r["launches"], **{k: r[k] for k in keys}}
-        for r in mesh_rows + verify_rows + gossip_rows]}))
+        for r in mesh_rows + verify_rows + gossip_rows + scale_rows]}))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))

@@ -13,7 +13,8 @@ modules that touch JAX (``tracing``, ``capacity``, the device reductions
 ``engine/kernel_engine``, ``nodehost``, ``chaos/runner``) are ported by
 hand and are not listed here.  The hand ports that follow one reference
 file each (``HAND_PORTS``: the chaos runner, the model checker from
-``scripts/model_check.py``, the analysis passes, whose scopes name the
+``scripts/model_check.py``, the capacity rungs from
+``scripts/scale_100k.py``, the analysis passes, whose scopes name the
 port's files, and ``logdb/kv``, which refuses a corrupt SST the reference
 reads past its end) are each held to a recorded diff against the
 rewritten reference text under ``tests/hand_ports/``, so an edit on either
@@ -62,6 +63,7 @@ MODULES = (
 HAND_PORTS = {
     "chaos/runner.py": "dragonboat_tpu/chaos/runner.py",
     "model_check.py": "scripts/model_check.py",
+    "scale_100k.py": "scripts/scale_100k.py",
     "logdb/kv.py": "dragonboat_tpu/logdb/kv.py",
     "analysis/determinism.py": "dragonboat_tpu/analysis/determinism.py",
     "analysis/concurrency.py": "dragonboat_tpu/analysis/concurrency.py",

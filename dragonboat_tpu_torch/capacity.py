@@ -10,8 +10,9 @@ analytically but OOMs in practice).  Three legs make both observable:
   engines dispatch (``step``, ``step_donated``) is wrapped in a tracked
   callable that counts its calls and detects a compile by sampling the
   callee's executable-cache size (``_cache_size``) around each call.
-  The port runs eager PyTorch: its entries have no cache probe, so
-  calls are counted and no compile is ever recorded.  Each compile is
+  On the port a compiled entry (``graphs.py``) reports its captured
+  CUDA graphs there, so a capture counts as a compile; an eager entry
+  has no probe, and its calls are counted with no compile.  Each compile is
   counted per entry, timed (the call's wall time is trace+lower+compile
   at that point), observed into ``compile_us{entry=...}`` histograms,
   and emitted as a Chrome-trace span that the ``/trace`` endpoint

@@ -88,6 +88,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 int launch(const GatherArgs& a, void* stream) {
+  // one thread a (row, lane position): gridDim.x takes up to 2^31 - 1
+  // blocks, so n up to ~5.5e11 positions (900,000 at 100,000 groups x 3)
   const int blocks = (int)((a.n + kThreads - 1) / kThreads);
   gather_lanes_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

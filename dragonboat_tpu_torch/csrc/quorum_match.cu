@@ -106,6 +106,8 @@ __global__ void __launch_bounds__(kThreads)
   out[g] = select_quorum<MaxP>(m, v, nv / 2 + 1);
 }
 
+// G is an int (one thread a row): rows up to 2^31 - 1 - kThreads, far
+// past the 300,000 of 100,000 groups x 3
 int blocks_for(int G) { return (G + kThreads - 1) / kThreads; }
 
 }  // namespace

@@ -1128,9 +1128,10 @@ class KernelEngine:
     def _capacity_entries(self) -> dict:
         """Call-count wrappers for every entry this engine dispatches:
         the backend's step entries plus the shared telemetry reductions.
-        Each engine wraps independently (own counters).  The port's
-        entries are eager: the wrappers count calls and record no
-        compile."""
+        Each engine wraps independently (own counters).  On the card
+        the step entries are CUDA graphs (``graphs.py``): a capture
+        counts as the entry's compile.  The reductions run eagerly and
+        record none."""
         from dragonboat_tpu_torch.core import fleet as _fleet
         from dragonboat_tpu_torch.core import health as _health
         from dragonboat_tpu_torch.core import invariants as _invariants

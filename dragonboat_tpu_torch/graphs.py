@@ -63,6 +63,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import threading
+import time
 import weakref
 
 import torch
@@ -276,6 +277,7 @@ class _Graph:
         self.record = _Record()
         self.cuda_graph = None          # torch.cuda.CUDAGraph on the card
         self.body = None                # the stand-in's re-run
+        self.capture_s = 0.0            # host seconds of warm-up and capture
 
 
 class Compiled:
@@ -308,6 +310,11 @@ class Compiled:
     def _cache_size(self) -> int:
         return len(self._graphs)
 
+    def capture_seconds(self) -> list:
+        """Host seconds each cached graph took to warm up and capture."""
+        with self._mu:
+            return [g.capture_s for g in self._graphs.values()]
+
     def clear(self) -> None:
         """Drop every graph of this entry with its buffers."""
         with self._mu:
@@ -338,7 +345,9 @@ class Compiled:
         with self._mu:
             g = self._graphs.get(key)
             if g is None:
+                t = time.perf_counter()
                 g = self._capture(args, dyn, tdefs, leaves)
+                g.capture_s = time.perf_counter() - t
                 self._graphs[key] = g
             self._last = g
             return self._replay(g, leaves)

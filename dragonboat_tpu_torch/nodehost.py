@@ -20,9 +20,10 @@ device (``parallel/ici.py``).
 Replicas are addressed by raft address or, with
 ``address_by_node_host_id``, by NodeHostID through the gossip view
 (``gossip.py``), over either transport (chan or ``transport/tcp.py``).
-Off this port's path, raising at construction with the ROADMAP.md item
-that names it: the JAX compile cache (``ExpertConfig.compile_cache``: CUDA
-graphs are captured anew in each process, item 13).  The default
+Refused at construction: the JAX compile cache
+(``ExpertConfig.compile_cache``).  CUDA graphs are captured in each
+process, and no cache carries a captured graph across processes.  The
+default
 ``ExpertConfig`` runs as is: the engine's decimated device reductions
 feed ``shard_info``'s device row and the opt-in ``enable_metrics``
 endpoint (``/metrics``, ``/healthz``, ``/debug/*``).
@@ -89,13 +90,13 @@ class AdmissionRefusedError(RequestError):
 
 
 def _refuse_off_path(nhconfig: NodeHostConfig) -> None:
-    """Raise for the NodeHost settings the port does not carry yet, each
-    naming the ROADMAP.md item that brings it (never skipped silently)."""
+    """Raise for the NodeHost settings the port does not carry, saying
+    why (never skipped silently)."""
     ex = nhconfig.expert
     if ex.compile_cache:
-        raise ValueError("ExpertConfig.compile_cache: the JAX compile cache "
-                         "has no counterpart in eager PyTorch (ROADMAP.md "
-                         "Queue 1 item 13)")
+        raise ValueError("ExpertConfig.compile_cache: CUDA graphs are "
+                         "captured in each process; no cache carries a "
+                         "captured graph across processes")
 
 
 @dataclass

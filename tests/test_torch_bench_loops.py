@@ -27,7 +27,7 @@ from dragonboat_tpu import bench_loop as ref_bl
 from dragonboat_tpu.core import kstate as ref_ks
 from dragonboat_tpu.rsm.device_kv import DeviceKV as RefKV
 from dragonboat_tpu_torch import bench_loop as bl
-from dragonboat_tpu_torch import convert
+from dragonboat_tpu_torch import convert, graphs, scale_100k
 from dragonboat_tpu_torch.core import params as P
 from dragonboat_tpu_torch.core.kstate import empty_inbox
 from dragonboat_tpu_torch.rsm.device_kv import DeviceKV
@@ -306,6 +306,22 @@ def test_cc_wave_equals_reference():
     done = sum(int((a & (committed >= i)).sum()) for a, i in waves)
     assert accepted > 0 and done == accepted, (accepted, done)
     assert ts.snap_index.numpy()[lead].astype(np.int64).sum() > snap0
+
+
+def test_scale_rung_phase_a_equals_reference_run_steps():
+    """``scale_100k``'s phase A at 8 groups x 3, two timed calls of 3
+    steps through the CPU stand-in, leaves the reference ``run_steps``'
+    state and inbox from the same start (the geometry and step count
+    ``test_cc_wave_equals_reference`` traces in this process)."""
+    kp_ref, _kp = _kps(False)
+    with graphs.stand_in():
+        _line, extra = scale_100k.phase_a(8, steps=3, device="cpu")
+    rs = ref_bl.make_cluster(kp_ref, 8, R)
+    rb = ref_ks.empty_inbox(kp_ref, 8 * R)
+    for _ in range(2):
+        rs, rb = ref_bl.run_steps(kp_ref, R, 3, True, True, rs, rb)
+    _same(rs, extra["state"], "phase A state")
+    _same(rb, extra["box"], "phase A inbox")
 
 
 # -- the election storm ------------------------------------------------------------------

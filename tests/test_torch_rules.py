@@ -37,6 +37,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         # the verification harnesses: chaos runner and model checker
         import dragonboat_tpu_torch.chaos  # noqa: F401
         import dragonboat_tpu_torch.model_check  # noqa: F401
+        # the capacity rungs and the step sweep
+        import dragonboat_tpu_torch.scale_100k  # noqa: F401
+        import dragonboat_tpu_torch.sweep_step  # noqa: F401
         # gossip addressing, the TCP transport, the history recorder and
         # the analysis passes (the lint driver's own check is in
         # tests/test_torch_analysis.py)
@@ -110,6 +113,18 @@ def test_verify_harnesses_without_device_raise_when_no_gpu():
                 chaos.run_hotspot):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run(1)
+
+
+def test_capacity_rungs_without_device_raise_when_no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from dragonboat_tpu_torch import scale_100k, sweep_step
+
+    for run in (scale_100k.phase_a, scale_100k.phase_b, sweep_step.measure):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scale_100k.main(["--groups", "2"])
 
 
 def test_wrappers_take_plain_arm_on_cpu_without_counting():
@@ -367,7 +382,8 @@ def test_nodehost_refuses_off_path_settings():
     from dragonboat_tpu_torch.nodehost import NodeHost
 
     cases = (
-        (dict(expert=ExpertConfig(compile_cache=True)), "item 13"),
+        (dict(expert=ExpertConfig(compile_cache=True)),
+         "captured in each process"),
     )
     for i, (kw, item) in enumerate(cases):
         with pytest.raises(ValueError, match=item):
