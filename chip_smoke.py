@@ -121,7 +121,9 @@ Phases, each printing one line (any failure exits non-zero):
    micro-step ms and committed writes/s on leader rows ``[mesh_ab]``.
    The NodeHost mesh cell: three hosts share ``MeshSpec(g_size=1,
    replicas=3, n_local=1024)`` with ``Config(mesh_resident=True)`` over
-   the chan transport and the reference's default ExpertConfig; 1024
+   the chan transport and the reference's default ExpertConfig, on the
+   engine's default grid (one device on a machine with fewer than 3
+   cards); 1024
    shards x 3 replicas, 4 writes per shard, every write acknowledged and
    the last read back from all 3,072 replicas (then the same serve with
    the engine's eager bodies, ``[mesh_eager]``); the fabric census's p50
@@ -202,12 +204,38 @@ Phases, each printing one line (any failure exits non-zero):
    the invariant probe's, held against its plain arm on tapped inputs,
    and no K2 ``[scale_b]``; the kernels' entries timed on the rungs'
    inputs ``[scale_kernel]``;
-12. the ``kernels`` JSON line, one row per kernel with the numbers of the
+12. mesh_split: the split mesh (``parallel/ici.py`` with a device grid:
+   each position's rows its own tensors on its own device), forced onto
+   the one card, and on one card a position where the process sees at
+   least ``g * r`` (``[mesh_split_devices]`` prints the count; a
+   ``[mesh_split_cards]`` line says where separate cards were not run).
+   Under ``--mesh`` first the transfer pass's guarded step loop (its
+   split mesh on two cards where there are two) and the placement check
+   (PS002) ``[mesh_split_guard]``; the default run leaves them to phase
+   10's ``[lint]``.  Then at MESH_GROUPS groups on phase 8's (g=1, r=3)
+   and the reference's (g=2, r=4) geometry: elect on the
+   one-device mesh, then MESH_PARITY_STEPS serve steps (the last
+   SPLIT_CUT_STEPS with one link cut at both ends) one device and split
+   graphed in lockstep, at (g=1, r=3) the last SPLIT_EAGER_STEPS also
+   split eager from the graphed arm's state, every state, box and output
+   leaf equal after every step, every split piece on its position's
+   device with its rows after every step, K1 (a step's count) and K2
+   (one) launched exactly once per position a serve step and held
+   against their plain arms on tapped inputs, then the micro-step ms of
+   both layouts through ``serve_step`` (3 interleaved windows of
+   SPLIT_AB_STEPS, medians; the seconds of the election, the lockstep
+   and the windows apart) ``[mesh_split]``; then phase 8's NodeHost
+   mesh cell on the split layout (every write acknowledged and read back
+   from all replicas, the link cut and healed, launches counted per
+   position) ``[mesh_split_nodehost]``; K1's and K2's entries timed on
+   the cell's inputs ``[mesh_split_kernel]``;
+13. the ``kernels`` JSON line, one row per kernel with the numbers of the
    entry the main path launches (``path`` "slice": launches phase 5's;
    ``path`` "mesh": launches phase 8's NodeHost cell's; ``path``
    "verify": launches phase 9's; ``path`` "gossip_tcp": launches phase
    10's cell's; ``path`` "scale": launches phase 11's phase A; ``path``
-   "scale_b": K1's launches in phase 11's phase B), then the final
+   "scale_b": K1's launches in phase 11's phase B; ``path``
+   "mesh_split": launches phase 12's NodeHost cell's), then the final
    ``{"ok": true, ...}`` line.
 
 Every number the run takes is printed on these lines.  Needs no network
@@ -218,9 +246,11 @@ EngineConfig and under a single step worker, in turn, ROUNDS times each.
 with the three reductions on (the default ExpertConfig) and off, in turn,
 ROUNDS times each.  ``--compare-turns [ROUNDS]`` runs only phases 1, 2 and
 the same cell graphed with the engines' shared step lock and with a null
-lock in its place, in turn, ROUNDS times each.  ``--mesh`` runs only phases 1, 2 and 8; ``--verify``
-only phases 1, 2 and 9, with every fast seed, the depth-1 schedule, the
-hotspot and the wide schedule; ``--gossip [SHARDS]`` only phases 1, 2
+lock in its place, in turn, ROUNDS times each.  ``--mesh`` runs only
+phases 1, 2, 8 and 12 (on a machine with ``g * r`` cards phase 12 runs
+the split mesh on them too); ``--verify`` only phases 1, 2 and 9, with
+every fast seed, the depth-1 schedule, the hotspot and the wide
+schedule; ``--gossip [SHARDS]`` only phases 1, 2
 and 10, its cell at SHARDS shards (GT_SHARDS unless given); ``--scale
 [GROUPS]`` only phases 1, 2 and 11, at GROUPS (SCALE_GROUPS unless
 given).
@@ -288,6 +318,18 @@ PROFILE_STEPS, LAUNCHES_PER_STEP_BEFORE = 6, 10807
 # script's time limit
 MESH_GROUPS, MESH_PARITY_STEPS, MESH_AB_STEPS = 1024, 30, 40
 MESH_ELECT_MAX, MESH_SETTLE, MESH_DEPTH1_SHARDS = 400, 6, 64
+# phase 12, the split mesh at MESH_GROUPS groups: phase 8's (g=1, r=3)
+# and the reference's 8-device (g=2, r=4); of phase 8's
+# MESH_PARITY_STEPS serve steps, the last SPLIT_CUT_STEPS with one link
+# cut at both ends; SPLIT_AB_STEPS micro-steps a timing window (phase 8
+# takes MESH_AB_STEPS: at (2, 4) a split micro-step took 172-226 ms on
+# an H100)
+SPLIT_GEOMETRIES, SPLIT_CUT_STEPS, SPLIT_AB_STEPS = ((1, 3), (2, 4)), 10, 10
+# the eager arm joins at SPLIT_EAGER_GEOMETRY (phase 8's and the NodeHost
+# cell's) for the last SPLIT_EAGER_STEPS serve steps, from the graphed
+# arm's state; it runs the same per-position bodies at (2, 4), where an
+# eager serve step is 8 eager steps, for the script's time limit
+SPLIT_EAGER_GEOMETRY, SPLIT_EAGER_STEPS = (1, 3), 10
 # phase 9, the verification harnesses: the reference's chaos_fast seeds
 # (--verify runs them at depth 0; it alone also runs the depth-1 and the
 # wide schedules and the hotspot, for the time limit: with the depth-1
@@ -1866,13 +1908,16 @@ def _kv_sm(shard_id, replica_id):
 
 
 def _nh_hosts(tag, shards, dev, depth=0, auto_run=True, one_worker=False,
-              reductions=True, metrics=False, mesh=False, **expert):
+              reductions=True, metrics=False, mesh=False, mesh_devices=None,
+              **expert):
     """Three NodeHosts over the chan transport with ``shards``
     device-resident shards x 3 replicas; the reference's ExpertConfig
     (the reductions on unless ``reductions`` is False) and EngineConfig
     (unless ``one_worker`` asks for a single step worker).  ``mesh``
     places the shards on one shared MeshEngine instead, a (g=1, r=3)
-    mesh of ``shards`` groups (``MeshSpec``, ``mesh_resident``)."""
+    mesh of ``shards`` groups (``MeshSpec``, ``mesh_resident``), its
+    positions on ``mesh_devices`` (the engine's default grid unless
+    given)."""
     from dragonboat_tpu_torch.config import (
         Config,
         EngineConfig,
@@ -1896,7 +1941,8 @@ def _nh_hosts(tag, shards, dev, depth=0, auto_run=True, one_worker=False,
         hosts[r] = NodeHost(NodeHostConfig(raft_address=addr,
                                            rtt_millisecond=10, expert=ex,
                                            enable_metrics=metrics),
-                            auto_run=auto_run, device=dev)
+                            auto_run=auto_run, device=dev,
+                            mesh_devices=mesh_devices)
     for sid in range(1, shards + 1):
         for r, nh in hosts.items():
             nh.start_replica(addrs, False, _kv_sm, Config(
@@ -2561,7 +2607,7 @@ def _nh_parity_run(dev, tag, mesh=False) -> list:
                 nh.tick_all()
             for nh in hosts.values():
                 nh.run_once()
-            trace.append([(convert.to_numpy(eng.state),
+            trace.append([(convert.to_numpy(eng._dispatch.join(eng.state)),
                            nh.nodes[1].sm.get_last_applied(),
                            dict(nh.nodes[1].sm.sm.kv),
                            _reduction_snapshots(eng))
@@ -2785,13 +2831,13 @@ def _mesh_cluster(torch, dev):
     return kp, cl, st, box, cut
 
 
-def _mesh_leaders(torch, st) -> int:
-    """Groups with a leader; block-major rows: replica ir of group n is
-    row ir * MESH_GROUPS + n (g = 1)."""
+def _mesh_leaders(torch, cl, st) -> int:
+    """Groups with a leader in a whole state; block-major rows: replica
+    ir of group ig * n_local + n is row (ig * R + ir) * n_local + n."""
     from dragonboat_tpu_torch.core import params as KP
 
-    lead = (st.role == KP.LEADER).reshape(REPLICAS, MESH_GROUPS)
-    return int(lead.any(dim=0).sum())
+    lead = (st.role == KP.LEADER).reshape(cl.g_size, cl.replicas, cl.n_local)
+    return int(lead.any(dim=1).sum())
 
 
 def _mesh_elect(torch, kp, cl, st, box, cut):
@@ -2800,9 +2846,9 @@ def _mesh_elect(torch, kp, cl, st, box, cut):
     from dragonboat_tpu_torch.parallel import ici
 
     n = 0
-    while _mesh_leaders(torch, st) < MESH_GROUPS:
-        check(n < MESH_ELECT_MAX, f"mesh: {_mesh_leaders(torch, st)} of "
-              f"{MESH_GROUPS} groups elected in {n} steps")
+    while _mesh_leaders(torch, cl, st) < cl.num_groups:
+        check(n < MESH_ELECT_MAX, f"mesh: {_mesh_leaders(torch, cl, st)} of "
+              f"{cl.num_groups} groups elected in {n} steps")
         st, box, _ = ici.ici_serve_step(
             cl, st, box, ici.self_driving_input(kp, st, propose=False), cut)
         n += 1
@@ -3013,13 +3059,15 @@ def _mesh_link_cut(hosts) -> dict:
             "cut_seconds": time.perf_counter() - t0}
 
 
-def _mesh_cell(torch, dev, tag) -> dict:
+def _mesh_cell(torch, dev, tag, mesh_devices=None) -> dict:
     """(c) The NodeHost mesh cell: three hosts share MeshSpec(g_size=1,
     replicas=3, n_local=MESH_GROUPS), mesh_resident shards, the
-    reference's default ExpertConfig; elect, NH_WRITES writes per shard,
-    every write acknowledged, the last one read back from every replica;
-    the census and the link classes; launches counted over the cell and
-    K1/K2 tapped; then the link cut."""
+    reference's default ExpertConfig, the positions on ``mesh_devices``
+    (the engine's default grid unless given); elect, NH_WRITES writes per
+    shard, every write acknowledged, the last one read back from every
+    replica; the census and the link classes; launches counted over the
+    cell (a serve step steps and routes once per position: once on one
+    device) and K1/K2 tapped; then the link cut."""
     from dragonboat_tpu_torch import fabric, kernels
     from dragonboat_tpu_torch.core import invariants as inv
     from dragonboat_tpu_torch.core import kernel as K
@@ -3036,27 +3084,35 @@ def _mesh_cell(torch, dev, tag) -> dict:
     probe_tap, untap_probe = _tap(inv, "quorum_match", 1)
     route_tap, untap_route = _tap(router, "gather_lanes_multi", 7)
     counts: dict = {}
-    uncount = _count_calls(ici, "_exchange", counts)
+    uncount = [_count_calls(ici, attr, counts) for attr in ("step", "route")]
 
     def restore():
         untap_step()
         untap_probe()
         untap_route()
-        uncount()
+        for u in uncount:
+            u()
 
     try:
-        hosts = _nh_hosts(tag, MESH_GROUPS, dev, mesh=True)
+        hosts = _nh_hosts(tag, MESH_GROUPS, dev, mesh=True,
+                          mesh_devices=mesh_devices)
         admit_s = time.perf_counter() - t0
         try:
             try:
                 st = _nh_serve(hosts, MESH_GROUPS)
-                torch.cuda.synchronize()
-                launches = dict(kernels.launches)
-                calls = (step_tap["calls"], probe_tap["calls"],
-                         route_tap["calls"], counts["_exchange"])
+                # between two engine steps: a serve step counts its
+                # positions' steps, then their routes
+                with hosts[1].mesh_engine.mu:
+                    torch.cuda.synchronize()
+                    launches = dict(kernels.launches)
+                    calls = (step_tap["calls"], probe_tap["calls"],
+                             route_tap["calls"], counts["step"],
+                             counts["route"])
             finally:
                 restore()
             eng = hosts[1].mesh_engine
+            positions = eng.cluster.positions
+            grid = eng.cluster.devices
             check(all(nh.mesh_engine is eng for nh in hosts.values()),
                   "mesh cell: the hosts do not share one engine")
             check(all(nh.kernel_engine is None for nh in hosts.values()),
@@ -3079,17 +3135,23 @@ def _mesh_cell(torch, dev, tag) -> dict:
           f"mesh cell: link classes {lc}")
     check(inv_seen is not None and inv_seen["violations_seen"] == 0,
           f"mesh cell: invariant probe {inv_seen}")
-    step_calls, probe_calls, route_calls, exchanges = calls
-    check(exchanges > 0 and route_calls == exchanges,
-          f"mesh cell: {route_calls} routes in {exchanges} exchanges")
-    check(step_calls == k1_per_step * exchanges,
-          f"mesh cell: {step_calls} K1 step launches in {exchanges} serve steps, "
+    step_calls, probe_calls, route_calls, steps, routes = calls
+    # one device: one step and one route a serve step; split: one each
+    # per position
+    per = positions if grid is not None else 1
+    exchanges = routes // per
+    check(routes > 0 and route_calls == routes and steps == routes
+          and routes == exchanges * per,
+          f"mesh cell: {route_calls} K2 calls, {routes} routes, {steps} "
+          f"steps on {per} position(s) a serve step")
+    check(step_calls == k1_per_step * steps,
+          f"mesh cell: {step_calls} K1 step launches in {steps} steps, "
           f"not {k1_per_step} a step")
     check(probe_calls > 0, "mesh cell: the invariant probe never launched K1")
     check(launches["quorum_match"] == step_calls + probe_calls,
           "mesh cell: K1's launches are not the step's and the probe's")
-    check(launches["gather_lanes"] == K2_PER_ROUTE * exchanges,
-          f"mesh cell: {launches['gather_lanes']} K2 launches in {exchanges} serve steps")
+    check(launches["gather_lanes"] == K2_PER_ROUTE * routes,
+          f"mesh cell: {launches['gather_lanes']} K2 launches in {routes} routes")
     check(launches["kv_apply"] == 0, "mesh cell: kv_apply launched off its path")
     held = {**_tapped(torch, step_tap["inputs"], "k1_tapped", "commit_quorum"),
             **_tapped(torch, probe_tap["inputs"], "k1_probe_tapped"),
@@ -3098,7 +3160,9 @@ def _mesh_cell(torch, dev, tag) -> dict:
         check(held[f"{key}_mismatches"] == 0, f"mesh cell: {key} differs from its plain arm")
     return {"shards": MESH_GROUPS, "replicas": 3, "hosts": 3, "admit_s": admit_s,
             **st, "p50_commit_host_hops": hops, "link_classes": len(lc),
-            "serve_steps": exchanges, "k1_per_serve_step": k1_per_step,
+            "layout": _layout(grid), "serve_steps": exchanges,
+            "k1_per_serve_step": k1_per_step * per,
+            "k2_per_serve_step": K2_PER_ROUTE * per,
             "k1_step_launches": step_calls, "k1_probe_launches": probe_calls,
             "launches": json.dumps(launches, separators=(",", ":")),
             **held, **cut, "close_s": close_s, "seconds": time.perf_counter() - t0,
@@ -3233,6 +3297,255 @@ def phase_mesh(torch, dev, smi: str) -> list[dict]:
         say("mesh_kernel", **{k: v for k, v in r.items() if k != "timing"},
             timing=json.dumps(r["timing"]))
     say("mesh_total", seconds=time.perf_counter() - t0)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the split mesh (each position's rows its own tensors)
+# ---------------------------------------------------------------------------
+
+
+def _layout(grid) -> str:
+    """A mesh's placement as printed: one device, or its grid."""
+    if grid is None:
+        return "one device"
+    names = [str(d) for d in grid]
+    if len(set(names)) == 1:
+        return f"split, {len(names)} positions on {names[0]}"
+    return "split, " + ",".join(names)
+
+
+def _split_grids(torch, dev, positions: int) -> list:
+    """The grids phase 12 runs a geometry on: every position on the one
+    card, then one card a position where the process sees enough."""
+    grids = [(dev,) * positions]
+    if torch.cuda.device_count() >= positions:
+        grids.append(tuple(torch.device("cuda", i) for i in range(positions)))
+    return grids
+
+
+def _split_masks(torch, cl, dev):
+    """The open cut mask and one with the link between replica 1 and
+    replica R of the last group cut at both ends."""
+    R, n = cl.replicas, cl.n_local
+    open_ = torch.zeros((cl.total_rows, cl.kp.num_peers), dtype=torch.bool,
+                        device=dev)
+    link = open_.clone()
+    ig, g = divmod(cl.num_groups - 1, n)
+    link[(ig * R) * n + g, R - 1] = True
+    link[(ig * R + R - 1) * n + g, 0] = True
+    return open_, link
+
+
+def _split_parity(torch, dev, g_size: int, replicas: int, grid) -> dict:
+    """One geometry at MESH_GROUPS groups: elect on the one-device mesh,
+    then MESH_PARITY_STEPS self-driving serve steps (the last
+    SPLIT_CUT_STEPS with one link cut at both ends) on three arms in
+    lockstep: one device (graphed), split on ``grid`` (graphed) and, at
+    SPLIT_EAGER_GEOMETRY for the last SPLIT_EAGER_STEPS from the graphed
+    arm's state, split eager (``graphs.eager()``).  Every state, box and
+    output leaf equal after every step, the placement check after every
+    split step, the graphed split arm's K1 and K2 launches counted
+    exactly (a position's step and route each), K1 and K2 tapped against
+    their plain arms; then micro-step ms of both layouts (``serve_step``,
+    its graphs captured again by one step each), SPLIT_AB_STEPS a
+    window, windows interleaved, median of 3; the seconds of the
+    election, the lockstep and the windows."""
+    from dragonboat_tpu_torch import bench_loop as bl
+    from dragonboat_tpu_torch import graphs, kernels
+    from dragonboat_tpu_torch.analysis import partition
+    from dragonboat_tpu_torch.core import kernel as K
+    from dragonboat_tpu_torch.core import router
+    from dragonboat_tpu_torch.parallel import ici
+
+    t0 = time.perf_counter()
+    P = g_size * replicas
+    kp = bl.bench_params(replicas, dev)
+    cl, st, box = ici.make_ici_cluster(kp, g_size, replicas, MESH_GROUPS,
+                                       device=dev)
+    scl, _, _ = ici.make_ici_cluster(kp, g_size, replicas, MESH_GROUPS,
+                                     devices=grid)
+    open_, link = _split_masks(torch, cl, dev)
+    s_open, s_link = scl.shard(open_), scl.shard(link)
+    st, box, elect_steps = _mesh_elect(torch, kp, cl, st, box, open_)
+    elect_s = time.perf_counter() - t0
+    eager_steps = (SPLIT_EAGER_STEPS
+                   if (g_size, replicas) == SPLIT_EAGER_GEOMETRY else 0)
+    arms = {"graphed": (scl.shard(st), scl.shard(box))}
+    k1, untap1 = _tap(K, "commit_quorum", LOOP_TAP_EVERY)
+    k2, untap2 = _tap(router, "gather_lanes_multi", 7)
+    counts: dict = {}
+    uncount = [_count_calls(ici, attr, counts) for attr in ("step", "route")]
+    launches: dict = {}
+    calls = {"step": 0, "route": 0}
+
+    def split_step(arm, cut):
+        s, b = arms[arm]
+        s, b, o = ici.ici_serve_step(scl, s, b, ici.self_driving_input(kp, s),
+                                     cut)
+        arms[arm] = (s, b)
+        check(partition.placement_check(
+            scl, ShardState=s, Inbox=b, StepOutput=o) == [],
+            f"mesh split {g_size}x{replicas}: a piece off its position")
+        return _leaves("", (scl.gather(s), scl.gather(b), scl.gather(o)))
+
+    try:
+        for i in range(MESH_PARITY_STEPS):
+            cut, s_cut = ((open_, s_open)
+                          if i < MESH_PARITY_STEPS - SPLIT_CUT_STEPS
+                          else (link, s_link))
+            st, box, out = ici.ici_serve_step(
+                cl, st, box, ici.self_driving_input(kp, st), cut)
+            want = _leaves("", (st, box, out))
+            l0, c0 = dict(kernels.launches), dict(counts)
+            got = split_step("graphed", s_cut)
+            for k, v in kernels.launches.items():
+                launches[k] = launches.get(k, 0) + v - l0.get(k, 0)
+            for k in calls:
+                calls[k] += counts[k] - c0[k]
+            bad = _leaf_diff(torch, want, got)
+            check(not bad, f"mesh split {g_size}x{replicas}: split != one "
+                  f"device at serve step {i}: {bad[:6]}")
+            if i < MESH_PARITY_STEPS - eager_steps:
+                # non-donating: the graphed arm's results are fresh
+                arms["eager"] = arms["graphed"]
+                continue
+            with graphs.eager():
+                eager = split_step("eager", s_cut)
+            bad = _leaf_diff(torch, got, eager)
+            check(not bad, f"mesh split {g_size}x{replicas}: eager != graphed "
+                  f"at serve step {i}: {bad[:6]}")
+    finally:
+        untap1()
+        untap2()
+        for u in uncount:
+            u()
+    steps = MESH_PARITY_STEPS
+    per_step = _k1_calls_per_step(kp)
+    check(calls["step"] == P * steps and calls["route"] == P * steps,
+          f"mesh split {g_size}x{replicas}: {calls} in {steps} serve steps "
+          f"of {P} positions")
+    check(launches.get("quorum_match", 0) == per_step * P * steps,
+          f"mesh split {g_size}x{replicas}: {launches.get('quorum_match')} K1 "
+          f"launches in {steps} serve steps, not {per_step} x {P} a step")
+    check(launches.get("gather_lanes", 0) == K2_PER_ROUTE * P * steps,
+          f"mesh split {g_size}x{replicas}: {launches.get('gather_lanes')} K2 "
+          f"launches in {steps} serve steps, not {P} a step")
+    check(launches.get("kv_apply", 0) == 0,
+          f"mesh split {g_size}x{replicas}: kv_apply launched off its path")
+    held = {**_tapped(torch, k1["inputs"], "k1_held", "commit_quorum"),
+            **_tapped(torch, k2["inputs"], "k2_held", "gather_lanes_multi")}
+    for k in ("k1_held", "k2_held"):
+        check(held[f"{k}_mismatches"] == 0, f"mesh split {g_size}x{replicas}: "
+              f"{k[:2].upper()} differs from its plain arm")
+    check(int(st.committed.max()) > 0, f"mesh split {g_size}x{replicas}: "
+          "nothing committed")
+    lockstep_s = time.perf_counter() - t0 - elect_s
+
+    # micro-step ms, one device against split, through the serving entry
+    # the lockstep ran (the taps' removal dropped its graphs: one step
+    # of each layout captures them again before the windows)
+    timed = {"one_device": (cl, st, box, link), "split": (scl, *arms["graphed"],
+                                                        s_link)}
+
+    def window(layout, steps=SPLIT_AB_STEPS):
+        c, s, b, cut = timed[layout]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            s, b, _ = ici.serve_step(
+                kp, c, s, b, ici.self_driving_input(kp, s), cut)
+        torch.cuda.synchronize()
+        timed[layout] = (c, s, b, cut)
+        return (time.perf_counter() - t) / steps * 1e3
+
+    t1 = time.perf_counter()
+    for layout in timed:
+        window(layout, 1)
+    wins = {"one_device": [], "split": []}
+    for _ in range(3):
+        for layout in wins:
+            wins[layout].append(window(layout))
+    ms = {k: statistics.median(v) for k, v in wins.items()}
+    windows_s = time.perf_counter() - t1
+    graphs.clear()
+    return {"geometry": f"(g={g_size}, r={replicas})", "groups": MESH_GROUPS,
+            "positions": P, "rows": cl.total_rows,
+            "layout": _layout(scl.devices),
+            "elect_steps": elect_steps, "serve_steps": steps,
+            "link_cut_steps": SPLIT_CUT_STEPS,
+            "split_vs_one_device": "equal",
+            "eager_vs_graphed": "equal" if eager_steps else "not run",
+            "eager_steps": eager_steps,
+            "placement_checks": steps + eager_steps,
+            "k1_per_serve_step": per_step * P,
+            "k2_per_serve_step": K2_PER_ROUTE * P,
+            "launches": json.dumps(launches, separators=(",", ":")), **held,
+            "one_device_micro_step_ms": ms["one_device"],
+            "split_micro_step_ms": ms["split"],
+            "split_over_one_device": ms["split"] / ms["one_device"],
+            "micro_steps_per_window": SPLIT_AB_STEPS,
+            "windows": json.dumps({k: [round(x, 3) for x in v]
+                                   for k, v in wins.items()}),
+            "elect_s": elect_s, "lockstep_s": lockstep_s,
+            "windows_s": windows_s, "seconds": time.perf_counter() - t0}
+
+
+def phase_mesh_split(torch, dev, smi: str, guard: bool = True) -> list[dict]:
+    """Phase 12: the split mesh, forced onto the one card (and on one
+    card a position where the process sees enough): with ``guard`` the
+    transfer and placement legs first (the default run leaves them to
+    phase 10's ``[lint]``, which runs the same legs), the serve step at
+    SPLIT_GEOMETRIES against the one-device mesh, then phase 8's NodeHost
+    mesh cell on the split layout.  Returns the kernels line's mesh_split
+    rows."""
+    from dragonboat_tpu_torch.analysis import __main__ as lint
+    from dragonboat_tpu_torch.analysis import partition, transfer
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    say("mesh_split_devices", device_count=cards,
+        separate_cards=json.dumps([f"(g={g}, r={r})" for g, r in
+                                   SPLIT_GEOMETRIES if cards >= g * r]))
+    if guard:
+        # the transfer leg's four geometries under the CUDA sync guard
+        # (its split mesh on two cards where the process sees two: the
+        # peer copies must not sync), and the placement check (PS002) on
+        # each grid
+        found = transfer.live_transfer_check(lint.ROOT, use_cache=False,
+                                             device=dev)
+        found += partition.dynamic_check(dev)
+        if cards >= 2:
+            found += partition.dynamic_check(
+                dev, devices=[torch.device("cuda", i) for i in range(2)])
+        say("mesh_split_guard", findings=len(found),
+            split_leg="two cards" if cards >= 2 else "one card",
+            seconds=time.perf_counter() - t0)
+        check(not found, f"mesh split: {[f.format() for f in found][:4]}")
+    for g, r in SPLIT_GEOMETRIES:
+        for grid in _split_grids(torch, dev, g * r):
+            say("mesh_split", **_split_parity(torch, dev, g, r, grid),
+                card=json.dumps(smi))
+        if cards < g * r:
+            say("mesh_split_cards", geometry=f"(g={g}, r={r})", run="no",
+                reason=f"the process sees {cards} card(s), the mesh has "
+                       f"{g * r} positions")
+    rows = None
+    for grid in _split_grids(torch, dev, 3):
+        cell = _mesh_cell(torch, dev, f"mss{time.monotonic_ns()}",
+                          mesh_devices=list(grid))
+        taps, launches = cell.pop("_taps"), cell.pop("_launches")
+        say("mesh_split_nodehost", **cell, card=json.dumps(smi))
+        if rows is None:
+            rows = _mesh_rows(torch, *taps, launches, path="mesh_split")
+    if cards < 3:
+        say("mesh_split_cards", geometry="NodeHost (g=1, r=3)", run="no",
+            reason=f"the process sees {cards} card(s), the mesh has 3 "
+                   "positions")
+    for r in rows:
+        say("mesh_split_kernel", **{k: v for k, v in r.items() if k != "timing"},
+            timing=json.dumps(r["timing"]))
+    say("mesh_split_total", seconds=time.perf_counter() - t0)
     return rows
 
 
@@ -4151,6 +4464,7 @@ def main() -> int:
         return compare_turns(torch, dev, int((sys.argv[2:] or ["1"])[0]))
     if sys.argv[1:2] == ["--mesh"]:
         phase_mesh(torch, dev, device["nvidia_smi"])
+        phase_mesh_split(torch, dev, device["nvidia_smi"])
         return 0
     if sys.argv[1:2] == ["--verify"]:
         phase_verify(torch, dev, device["nvidia_smi"], full=True)
@@ -4172,6 +4486,8 @@ def main() -> int:
     verify_rows = phase_verify(torch, dev, device["nvidia_smi"], full=False)
     gossip_rows = phase_gossip_tcp(torch, dev, device["nvidia_smi"])
     scale_rows = phase_scale(torch, dev, device["nvidia_smi"])
+    split_rows = phase_mesh_split(torch, dev, device["nvidia_smi"],
+                                  guard=False)
     say("total", seconds=time.perf_counter() - t0)
     # one row per kernel: the numbers of the entry the main path launches
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
@@ -4182,7 +4498,8 @@ def main() -> int:
         for r in rows if r["name"] in MAIN_PATH_ENTRIES] + [
         {"name": r["kernel"], "entry": r["name"], "path": r["path"],
          "launches": r["launches"], **{k: r[k] for k in keys}}
-        for r in mesh_rows + verify_rows + gossip_rows + scale_rows]}))
+        for r in mesh_rows + verify_rows + gossip_rows + scale_rows
+        + split_rows]}))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))

@@ -20,16 +20,23 @@ port's own files:
   and the compiled entries the port builds (KC007, KC008);
 - ``transfer``     — the declared device<->host seam, and a guarded step
   loop whose live crossings are diffed against the ledger (on the card
-  the guard is ``torch.cuda.set_sync_debug_mode("error")``).
+  the guard is ``torch.cuda.set_sync_debug_mode("error")``);
+- ``partition``    — the dynamic leg only (PS002's cross-check): one serve
+  step of a split mesh (``parallel/ici.py``), and every ``part=G`` leaf
+  of each position on that position's device with its ``n_local`` rows.
+  The static walk (PS001 cross-G reductions, PS003 replicated operands
+  mixed with split ones, PS006 implicit syncs in the engine's hot paths)
+  is not ported yet (ROADMAP.md).
 
 What has no torch form, and is not invented here:
 
 - ``hlo_budget`` counts XLA HLO gather/scatter/while ops of the lowered
   step; the port's step is eager PyTorch captured into CUDA graphs, with
   no HLO to count;
-- ``partition`` checks ``shard_map`` in/out specs and the G axis's SPMD
-  placement; the port's mesh keeps every position on the host's one
-  device and has no ``shard_map``;
+- ``partition``'s PS002 static leg checks ``shard_map`` in/out specs;
+  the port's split mesh has no ``shard_map`` (its positions' pieces are
+  checked as they are, above), and PS004's donor/result shardings are
+  the pieces' own devices;
 - ``tracer_safety`` finds Python control flow on JAX tracers inside
   jitted scope; torch has no tracers (the contracts pass's abstract
   interpreter, KC001-KC006, rides on that walk and is left out with it);

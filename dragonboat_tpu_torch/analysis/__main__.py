@@ -22,8 +22,10 @@ have a torch form (``analysis/__init__.py`` lists the ones that do not):
                 obligations (RS001-RS004, RS006); ``--dynamic`` adds the
                 model checker's fast scope (RS005)
   transfer      the declared device<->host seam (TB001-TB006);
-                ``--dynamic`` adds the guarded step loop at three
+                ``--dynamic`` adds the guarded step loop at four
                 geometries, diffed against the ledger
+  partition     ``--dynamic`` only: one serve step of a split mesh, every
+                position's leaves on its own device with its rows (PS002)
 
 ``--dynamic`` runs on ``--device`` (default: the CUDA card; with no card
 it raises — pass ``--device cpu``); the dynamic legs' verdicts are cached
@@ -52,6 +54,7 @@ from dragonboat_tpu_torch.analysis import (
     contracts,
     determinism,
     engine_unity,
+    partition,
     safety,
     transfer,
 )
@@ -73,6 +76,8 @@ def _passes(dynamic: bool, device, use_cache: bool) -> dict:
             root, dynamic=dynamic, device=device, use_cache=use_cache),
         "transfer": lambda root: transfer.run(
             root, dynamic=dynamic, device=device, use_cache=use_cache),
+        "partition": lambda root: partition.run(
+            root, dynamic=dynamic, device=device),
     }
 
 
@@ -133,7 +138,8 @@ def main(argv: list[str] | None = None, root: str = ROOT) -> int:
                     help="run only this pass (repeatable; default: all)")
     ap.add_argument("--dynamic", action="store_true",
                     help="add the device legs: RS005, the transfer "
-                         "dynamic leg, KC007's runtime diff")
+                         "dynamic leg, KC007's runtime diff, PS002's "
+                         "placement check")
     ap.add_argument("--device", default=None,
                     help="device of the dynamic legs (default: the CUDA "
                          "card)")

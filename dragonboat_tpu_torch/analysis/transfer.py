@@ -18,8 +18,10 @@ reads a JAX idiom in the reference reads the port's counterpart here:
   are the port's ``fleet_stats`` / ``fleet_health`` /
   ``check_invariants``;
 - the dynamic leg steps the real seams at serial depth 0, serial depth 1
-  (donated) and the one-device mesh (every mesh position on the host's
-  one device, in place of the reference's two-device mesh), under
+  (donated), the one-device mesh (every mesh position on the host's
+  one device) and the split mesh (the reference's two-position mesh,
+  each position's pieces on its own card, or both on the one device
+  when the process sees one card), under
   ``capacity.METER.guard()``: on the card that is
   ``torch.cuda.set_sync_debug_mode("error")`` with the declared
   sanctioned scopes lifted to 0 for their extent, so an undeclared sync
@@ -74,8 +76,8 @@ Rules:
 - TB006  per-step transfer count growth: more per-step crossings than
          the ledger declares (static vs budget, and dynamic — the live
          METER counts diffed against the ledger after a guarded step
-         loop at three geometries: serial depth-0, serial depth-1
-         donated, the one-device mesh)
+         loop at four geometries: serial depth-0, serial depth-1
+         donated, the one-device mesh, the split mesh)
 
 The dynamic leg drives the REAL seam objects (``SerialDispatch`` /
 ``MeshDispatch`` + the staging builders) under
@@ -929,7 +931,7 @@ def _check_budget(findings: list[Finding], root: str, sized: dict,
 
 
 # ---------------------------------------------------------------------------
-# dynamic leg: METER counts vs the ledger at three geometries
+# dynamic leg: METER counts vs the ledger at four geometries
 # ---------------------------------------------------------------------------
 
 
@@ -1027,8 +1029,8 @@ def live_transfer_check(root: str, decl: dict | None = None,
                         use_cache: bool = True,
                         device=None) -> list[Finding]:
     """Run the real dispatch seams under ``capacity.METER.guard()`` at
-    three geometries (serial depth-0, serial depth-1 donated, the
-    one-device mesh) on ``device`` (the CUDA card unless the caller names
+    four geometries (serial depth-0, serial depth-1 donated, the
+    one-device mesh, the split mesh) on ``device`` (the CUDA card unless the caller names
     another) and diff the live METER counts against the declared ledger.
     On the card an undeclared sync raises inside the guard; the counters
     prove the sanctioned crossings happen exactly as declared."""
@@ -1119,6 +1121,37 @@ def _live_impl(root: str, decl: dict, device) -> list[Finding]:
             mdisp.pending()
             drain(mout)
     _diff_counts(findings, "mesh-1dev", "serve_step", decl,
+                 meter.counts(), N, {"lazy_out": N, "cut_up": 1})
+
+    # --- split mesh (each position's pieces on its own device: separate
+    # cards when the process sees two, else both on the device) --------
+    grid = ici.mesh_grid(2, device) or [device, device]
+    scluster, sstate, _box = ici.make_ici_cluster(mkp, 1, 2, num_groups=2,
+                                                  devices=grid)
+    sdisp = MeshDispatch(scluster)
+    sinp = _ke._InputBuilder(scluster.total_rows, mkp.proposal_cap,
+                             device=scluster.device)
+
+    def drain_split(out) -> None:
+        """The engine's retire on a split step: the flags of every
+        position in one sanctioned download, one masked field."""
+        with meter.sanctioned("output_flags"):
+            for o in out:
+                output_row_flags(o).cpu().numpy()
+        _ = _ke._LazyOut(out)["s_commit"]
+
+    sstate, sout = sdisp.dispatch(sstate, None, sinp, donate=False)  # warm
+    sdisp.pending()
+    for o in sout:
+        output_row_flags(o).cpu().numpy()
+    sdisp.set_cut(0, False)
+    meter.reset()
+    with meter.guard():
+        for _ in range(N):
+            sstate, sout = sdisp.dispatch(sstate, None, sinp, donate=False)
+            sdisp.pending()
+            drain_split(sout)
+    _diff_counts(findings, "mesh-split", "serve_step", decl,
                  meter.counts(), N, {"lazy_out": N, "cut_up": 1})
     return findings
 

@@ -44,6 +44,7 @@ from dragonboat_tpu_torch.core.kernel import (
 from dragonboat_tpu_torch.core.kstate import Inbox, empty_inbox
 from dragonboat_tpu_torch.parallel.ici import (
     IciCluster,
+    input_slots,
     serve_step,
     serve_step_donated,
 )
@@ -375,11 +376,31 @@ class SerialDispatch:
         """Single device: placement is a no-op."""
         return tree
 
+    def join(self, tree):
+        """Single device: the state is already whole."""
+        return tree
+
     def resident_trees(self) -> tuple:
         return ()
 
     def resident_classes(self) -> tuple:
         return ()
+
+
+def _merge_hub(staged: Inbox, box: Inbox) -> Inbox:
+    """The carried inbox with the live slots of a hub-staged inbox
+    written over it (both on one device, the same rows)."""
+    if box.ent_val is not None and staged.ent_val is None:
+        staged = staged._replace(ent_val=torch.zeros_like(box.ent_val))
+    live = staged.mtype != 0
+
+    def merge(s, b):
+        if s is None:
+            return None
+        m = live.reshape(tuple(live.shape) + (1,) * (s.ndim - 2))
+        return torch.where(m, s, b)
+
+    return Inbox(*[merge(s, b) for s, b in zip(staged, box)])
 
 
 #: FLAG_CLASSES columns that carry inter-replica messages — the classes
@@ -391,17 +412,23 @@ _MSG_FLAG_COLS = [FLAG_CLASSES.index(c)
 
 class MeshDispatch:
     """Mesh backend (``parallel/ici.py``): messages ride the exchange
-    inside the step, the inbox stays on the cluster's device between
-    steps, and a per-link cut mask decides which links the mesh serves —
+    inside the step, the inbox stays on the device between steps, and a
+    per-link cut mask decides which links the mesh serves —
     traffic for cut links (and off-mesh peers) rides the host hub and is
-    merged back into the carried inbox at its route() slot."""
+    merged back into the carried inbox at its route() slot.
+
+    On a split cluster (``cluster.devices``) the carried inbox, the
+    staged input and the cached cut mask are per-position pieces on the
+    positions' devices, and a hub delivery merges into the piece of the
+    position that owns its row."""
 
     def __init__(self, cluster: IciCluster) -> None:
         self.cluster = cluster
         total = cluster.total_rows
         # the inbox carried between steps on the device (messages ride
         # the mesh, not the host queues)
-        self.box = empty_inbox(cluster.kp, total, cluster.device)
+        self.box = cluster.shard(empty_inbox(cluster.kp, total,
+                                             cluster.device))
         # drain-pending, derived host-side from the [G, C] activity
         # flags the step loop already fetches every step
         self._pending_msgs = False
@@ -421,6 +448,14 @@ class MeshDispatch:
                 "serve_step_donated", self._fns["serve_step_donated"]),
         }
 
+    def _pieces(self, intos=None) -> list:
+        """(device, rows, static input or None) of every position of a
+        split cluster, for the staging builders."""
+        cl = self.cluster
+        intos = intos or [None] * cl.positions
+        return [(dev, cl.rows(p), intos[p])
+                for p, dev in enumerate(cl.devices)]
+
     def dispatch(self, state, inbox, inp, donate: bool):
         """Advance the mesh: host-staged inputs, device-routed messages.
         Kernel-family traffic between mesh rows rides the exchange inside
@@ -431,25 +466,29 @@ class MeshDispatch:
         donating entry (no-touch contract on state, the carried inbox and
         the staged input); the cached cut mask is never donated."""
         cl = self.cluster
+        split = cl.devices is not None
         if inbox is not None and inbox.mtype.any():
-            staged = inbox.to_device()
-            if self.box.ent_val is not None and staged.ent_val is None:
-                staged = staged._replace(
-                    ent_val=torch.zeros_like(self.box.ent_val))
-            live = staged.mtype != 0
-
-            def merge(s, b):
-                if s is None:
-                    return None
-                m = live.reshape(tuple(live.shape) + (1,) * (s.ndim - 2))
-                return torch.where(m, s, b)
-
-            self.box = Inbox(*[merge(s, b) for s, b in zip(staged, self.box)])
+            if split:
+                staged = inbox.to_device(pieces=self._pieces())
+                self.box = graphs.Split(
+                    _merge_hub(s, b) for s, b in zip(staged, self.box))
+            else:
+                self.box = _merge_hub(inbox.to_device(), self.box)
         name = "serve_step_donated" if donate else "serve_step"
-        staged_inp = inp.to_device(self._fns[name].last_static(4))
+        fn = self._fns[name]
+        if split:
+            staged_inp = inp.to_device(
+                pieces=self._pieces(input_slots(fn, cl)))
+        else:
+            staged_inp = inp.to_device(fn.last_static(4))
         if self._cut_dev is None:
             with _capacity.METER.sanctioned("cut_up"):
-                self._cut_dev = torch.tensor(self.cut, device=cl.device)
+                if split:
+                    self._cut_dev = graphs.Split(
+                        torch.tensor(self.cut[rows], device=dev)
+                        for dev, rows, _ in self._pieces())
+                else:
+                    self._cut_dev = torch.tensor(self.cut, device=cl.device)
         state, box, out = self.entries[name](
             cl.kp, cl, state, self.box, staged_inp, self._cut_dev)
         self.box = box
@@ -471,12 +510,18 @@ class MeshDispatch:
 
     def inbox_from(self, inbox_buf):
         # the mesh inbox stays on the device between steps; no host copy
-        return self.box.from_
+        # (a split one is joined on the cluster's device)
+        return self.cluster.gather(self.box.from_)
 
     def shard(self, tree):
-        """Place a [G]-leading tree on the cluster's device (digests and
-        the like live where the state they derive from lives)."""
-        return self.cluster.shard(tree)
+        """Place a [G]-leading tree whole on the cluster's device: the
+        digests live where the reductions read the (joined) state."""
+        return self.cluster.place(tree)
+
+    def join(self, tree):
+        """A state-shaped tree whole on the cluster's device: split
+        pieces joined in row order, for the decimated reductions."""
+        return self.cluster.gather(tree)
 
     def set_cut(self, lane: int, cut: bool) -> None:
         """Flip one row's WHOLE partition mask (every link of the row)

@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from dragonboat_tpu_torch import capacity as _capacity
+from dragonboat_tpu_torch import graphs
 from dragonboat_tpu_torch import lifecycle
 from dragonboat_tpu_torch import raftpb as pb
 from dragonboat_tpu_torch.tracing import annotate, stop_env_trace
@@ -88,10 +89,15 @@ from dragonboat_tpu_torch.core.kstate import (
     StepInput,
     init_state,
 )
-from dragonboat_tpu_torch.devices import resolve_device
+from dragonboat_tpu_torch.devices import (
+    put_rows as _put_rows,
+    resolve_device,
+    upload as _upload,
+)
 from dragonboat_tpu_torch.events import EventHub
 from dragonboat_tpu_torch.logger import get_logger
 from dragonboat_tpu_torch.node import Node, _SnapshotRequest
+from dragonboat_tpu_torch.parallel import ici
 from dragonboat_tpu_torch.raftio import LeaderInfo
 from dragonboat_tpu_torch.request import RequestResultCode
 from dragonboat_tpu_torch.statemachine import Result
@@ -134,7 +140,7 @@ class _LazyOut:
         v = self._np.get(f)
         if v is None:
             with _capacity.METER.sanctioned("lazy_out"):
-                v = getattr(self._out, f).cpu().numpy()
+                v = ici.to_host(getattr(self._out, f))
             self._np[f] = v
         return v
 
@@ -653,60 +659,54 @@ class KernelEngine:
             f32["snap_term"][j] = init.snap_term
             f32["last"][j] = last
             f32["committed"][j] = init.committed
-        s = self.state
-        dev = self.device
+        last = f32["last"]
         with _capacity.METER.sanctioned("inject_up"):
-            lanes = _upload(lanes_np.astype(np.int64), dev)
-            A = {k: _upload(v, dev) for k, v in {**f32, **fb}.items()}
-
-            def put(arr, vals):
-                return _put_rows(arr, lanes, vals)
-
-            last_v = A["last"]
-            self.state = s._replace(
-                replica_id=put(s.replica_id, A["replica_id"]),
-                seed=put(s.seed, A["seed"]),
-                rand_timeout=put(s.rand_timeout, A["rand_timeout"]),
-                rand_counter=put(s.rand_counter, 0),
-                e_timeout=put(s.e_timeout, A["e_timeout"]),
-                h_timeout=put(s.h_timeout, A["h_timeout"]),
-                check_quorum=put(s.check_quorum, A["check_quorum"]),
-                pre_vote=put(s.pre_vote, A["pre_vote"]),
-                role=put(s.role, A["role"]),
-                term=put(s.term, A["term"]),
-                vote=put(s.vote, A["vote"]),
-                leader=put(s.leader, 0),
-                applied=put(s.applied, A["applied"]),
-                e_tick=put(s.e_tick, 0),
-                h_tick=put(s.h_tick, 0),
-                pending_cc=put(s.pending_cc, False),
-                ltt=put(s.ltt, 0),
-                is_ltt=put(s.is_ltt, False),
-                pid=put(s.pid, _upload(pid_rows, dev)),
-                kind=put(s.kind, _upload(kind_rows, dev)),
-                match=put(s.match, 0),
-                next=put(s.next, (last_v + 1)[:, None]),
-                pstate=put(s.pstate, KP.R_RETRY),
-                active=put(s.active, False),
-                psnap=put(s.psnap, 0),
-                vresp=put(s.vresp, False),
-                vgrant=put(s.vgrant, False),
-                lt=put(s.lt, _upload(lt_rows, dev)),
-                lcc=put(s.lcc, _upload(lcc_rows, dev)),
-                snap_index=put(s.snap_index, A["snap_index"]),
-                snap_term=put(s.snap_term, A["snap_term"]),
-                last=put(s.last, last_v),
-                committed=put(s.committed, A["committed"]),
-                processed=put(s.processed, A["applied"]),
-                stable=put(s.stable, last_v),
-                ri_head=put(s.ri_head, 0),
-                ri_count=put(s.ri_count, 0),
-                needs_host=put(s.needs_host, False),
-                quiesce_on=put(s.quiesce_on, A["quiesce_on"]),
-                idle_tick=put(s.idle_tick, 0),
-                quiesced=put(s.quiesced, False),
-                quiesce_epoch=put(s.quiesce_epoch, 0),
-            )
+            # each row lands in the position that owns it (one device
+            # unless the mesh is split, parallel/ici.py)
+            self.state = ici.write_rows(self.state, lanes_np, dict(
+                replica_id=f32["replica_id"],
+                seed=f32["seed"],
+                rand_timeout=f32["rand_timeout"],
+                rand_counter=0,
+                e_timeout=f32["e_timeout"],
+                h_timeout=f32["h_timeout"],
+                check_quorum=fb["check_quorum"],
+                pre_vote=fb["pre_vote"],
+                role=f32["role"],
+                term=f32["term"],
+                vote=f32["vote"],
+                leader=0,
+                applied=f32["applied"],
+                e_tick=0,
+                h_tick=0,
+                pending_cc=False,
+                ltt=0,
+                is_ltt=False,
+                pid=pid_rows,
+                kind=kind_rows,
+                match=0,
+                next=(last + 1)[:, None],
+                pstate=KP.R_RETRY,
+                active=False,
+                psnap=0,
+                vresp=False,
+                vgrant=False,
+                lt=lt_rows,
+                lcc=lcc_rows,
+                snap_index=f32["snap_index"],
+                snap_term=f32["snap_term"],
+                last=last,
+                committed=f32["committed"],
+                processed=f32["applied"],
+                stable=last,
+                ri_head=0,
+                ri_count=0,
+                needs_host=False,
+                quiesce_on=fb["quiesce_on"],
+                idle_tick=0,
+                quiesced=False,
+                quiesce_epoch=0,
+            ))
 
     def _clear_lane(self, lane: int, queued: bool) -> None:
         """Vacate a lane (``queued``: its injection was still queued)."""
@@ -718,15 +718,14 @@ class KernelEngine:
             self._triple_np[lane] = -1
             self._occ_np[lane] = False
             return
-        s = self.state
-        self.state = s._replace(
-            kind=_put_rows(s.kind, lane, KP.K_ABSENT),
-            pid=_put_rows(s.pid, lane, 0),
-            needs_host=_put_rows(s.needs_host, lane, False),
+        self.state = ici.write_rows(self.state, lane, dict(
+            kind=KP.K_ABSENT,
+            pid=0,
+            needs_host=False,
             # a vacated lane must not linger in the fleet quiesced count
-            quiesce_on=_put_rows(s.quiesce_on, lane, False),
-            quiesced=_put_rows(s.quiesced, lane, False),
-        )
+            quiesce_on=False,
+            quiesced=False,
+        ))
         self._kind_np[lane] = KP.K_ABSENT
         self._pid_np[lane] = 0
         self._triple_np[lane] = -1
@@ -761,19 +760,16 @@ class KernelEngine:
                 pids[i], kinds[i] = rid, KP.K_WITNESS
                 i += 1
         g = node.lane
-        s = self.state
         with _capacity.METER.sanctioned("membership_up"):
-            jp = _upload(pids[None, :], self.device)
-            jk = _upload(kinds[None, :], self.device)
-        self.state = s._replace(
-            pid=_put_rows(s.pid, g, jp),
-            kind=_put_rows(s.kind, g, jk),
-            # the applied CC releases the one-in-flight gate (pycore
-            # add_node/add_non_voting/... clear pending_config_change on
-            # apply; without this a lane accepts exactly ONE config
-            # change in its lifetime and drops every later one)
-            pending_cc=_put_rows(s.pending_cc, g, False),
-        )
+            self.state = ici.write_rows(self.state, g, dict(
+                pid=pids[None, :],
+                kind=kinds[None, :],
+                # the applied CC releases the one-in-flight gate (pycore
+                # add_node/add_non_voting/... clear pending_config_change
+                # on apply; without this a lane accepts exactly ONE
+                # config change in its lifetime and drops every later one)
+                pending_cc=False,
+            ))
         self._kind_np[g] = kinds
         self._pid_np[g] = pids
 
@@ -1034,7 +1030,7 @@ class KernelEngine:
 
         with _capacity.METER.sanctioned("fleet_down"):
             stats = self._cap_entries["fleet_stats"](
-                self.state, self._fleet_inbox_from())
+                self._dispatch.join(self.state), self._fleet_inbox_from())
             self.last_fleet = _fleet.stats_to_dict(stats)
 
     def _make_health_digest(self):
@@ -1060,7 +1056,8 @@ class KernelEngine:
             self._health_digest = self._make_health_digest()
         with _capacity.METER.sanctioned("health_down"):
             report, self._health_digest = self._cap_entries["fleet_health"](
-                self.state, self._fleet_inbox_from(), self._health_digest,
+                self._dispatch.join(self.state), self._fleet_inbox_from(),
+                self._health_digest,
                 thresholds=self.health_thresholds, k=self.health_top_k)
             cur = _health.report_to_dict(report)
         prev = self.last_health
@@ -1109,7 +1106,8 @@ class KernelEngine:
                 self._inv_digest = d._replace(
                     ticks=_put_rows(d.ticks, lanes, 0))
             report, self._inv_digest = self._cap_entries[
-                "check_invariants"](self.state, self._inv_digest)
+                "check_invariants"](self._dispatch.join(self.state),
+                                    self._inv_digest)
             cur = _invariants.report_to_dict(report)
         prev = self.last_invariants
         self._inv_seq += 1
@@ -1201,7 +1199,7 @@ class KernelEngine:
                 self._health_digest = self._make_health_digest()
             with _capacity.METER.sanctioned("health_row"):
                 row = _health.shard_row(
-                    self.state, self._fleet_inbox_from(),
+                    self._dispatch.join(self.state), self._fleet_inbox_from(),
                     self._health_digest, lane,
                     thresholds=self.health_thresholds)
                 return _health.row_to_dict(row)
@@ -1409,7 +1407,13 @@ class KernelEngine:
         for k in ctx.traced:
             lifecycle.TRACER.stamp(k, lifecycle.STAGE_RETIRE)
         with _capacity.METER.sanctioned("output_flags"):
-            flags = output_row_flags(out, self._row_flags).cpu().numpy()
+            if isinstance(out, graphs.Split):
+                # per position, on its device
+                flags = np.concatenate([
+                    output_row_flags(o, self._row_flags).cpu().numpy()
+                    for o in out])
+            else:
+                flags = output_row_flags(out, self._row_flags).cpu().numpy()
         # the dispatch backend derives drain-pending from the same flags
         # (MeshDispatch dropped its per-step pending-scalar download)
         self._dispatch.note_output_flags(flags)
@@ -1461,9 +1465,8 @@ class KernelEngine:
         lt_rows = {}
         if save_rows:
             with _capacity.METER.sanctioned("lt_rows"):
-                idx = _upload(np.asarray(save_rows, np.int64), self.device)
                 lt_rows = dict(zip(save_rows,
-                                   self.state.lt[idx].cpu().numpy()))
+                                   ici.take_rows(self.state.lt, save_rows)))
 
         for g, n in cand:
             # 1. proposal fates (origin holds the future's books — on a
@@ -1606,7 +1609,8 @@ class KernelEngine:
                 # never bridge (re-sent forever) — evict instead.
                 ss = n.logdb.get_snapshot(n.shard_id, n.replica_id)
                 with _capacity.METER.sanctioned("wit_snap_floor"):
-                    floor = int(self.state.snap_index[g])  # wit_snap only
+                    floor = int(ici.take_rows(  # wit_snap only
+                        self.state.snap_index, [g])[0])
                 if ss is not None and not ss.is_empty() \
                         and ss.index >= floor:
                     others.append((n, pb.Message(
@@ -1835,36 +1839,12 @@ _FAMILY_OF_TYPE = {
 # everything else (responses, NOOP, UNREACHABLE, SNAPSHOT_STATUS) -> "resp"
 
 
-def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host staging array as a tensor of the same dtype on ``device``.
-    On the CPU the tensor is a copy, never a view: the staging buffers are
-    reset and rewritten while a step that consumed them may still hold
-    its inputs."""
-    t = torch.from_numpy(a)
-    return t.clone() if device.type == "cpu" else t.to(device)
-
-
-def _put_rows(arr: torch.Tensor, rows, vals) -> torch.Tensor:
-    """``arr`` with ``arr[rows] = vals`` (out of place; ``vals``
-    broadcasts over the selected rows and takes ``arr``'s dtype).
-    ``rows`` is an index tensor on ``arr``'s device, or one row as a
-    Python int (nothing is uploaded for it).  A Python scalar is filled on
-    ``arr``'s device, not copied from the host."""
-    if isinstance(vals, torch.Tensor):
-        v = vals.to(device=arr.device, dtype=arr.dtype)
-    else:
-        v = torch.full((), vals, dtype=arr.dtype, device=arr.device)
-    if isinstance(rows, int):
-        out = arr.clone()
-        out[rows:rows + 1] = v
-        return out
-    return arr.index_put((rows,), v.expand((rows.shape[0],) + arr.shape[1:]))
-
-
-def _upload_into(into, builder, renamed: dict | None = None):
-    """Copy a builder's staging arrays into the device tree ``into`` (a
-    compiled step's static input), field by field; ``renamed`` maps a
-    field to its array, or to None for a field that stays all zero."""
+def _upload_into(into, builder, renamed: dict | None = None,
+                 rows: slice = slice(None)):
+    """Copy rows ``rows`` of a builder's staging arrays into the device
+    tree ``into`` (a compiled step's static input), field by field;
+    ``renamed`` maps a field to its array, or to None for a field that
+    stays all zero."""
     renamed = renamed or {}
     for f, dst in zip(into._fields, into):
         if dst is None:
@@ -1873,8 +1853,15 @@ def _upload_into(into, builder, renamed: dict | None = None):
         if a is None:
             dst.zero_()
         else:
-            dst.copy_(torch.from_numpy(a))
+            dst.copy_(torch.from_numpy(a[rows]))
     return into
+
+
+# the Inbox fields a builder stages, in order (inline payload lanes stay
+# None)
+_STAGED_INBOX_FIELDS = ("mtype", "from_", "term", "log_term", "log_index",
+                        "commit", "reject", "hint", "hint_high", "n_ent",
+                        "ent_term", "ent_cc")
 
 
 class _InboxBuilder:
@@ -1952,27 +1939,24 @@ class _InboxBuilder:
             n.mirror[e.index] = e
         return True
 
-    def to_device(self, into: Inbox | None = None) -> Inbox:
+    def to_device(self, into: Inbox | None = None,
+                  pieces: list | None = None):
         """The staged inbox on the device; written into ``into`` (a
-        compiled step's static inbox) when given."""
-        d = self.device
-        with _capacity.METER.sanctioned("inbox_up"):
+        compiled step's static inbox) when given.  ``pieces`` (a split
+        mesh): one ``(device, rows, into)`` per position, and the result
+        is the positions' inboxes as a ``graphs.Split``, staged in one
+        crossing."""
+
+        def stage(into, d, rows):
             if into is not None:
-                return _upload_into(into, self)
-            return Inbox(
-                mtype=_upload(self.mtype, d),
-                from_=_upload(self.from_, d),
-                term=_upload(self.term, d),
-                log_term=_upload(self.log_term, d),
-                log_index=_upload(self.log_index, d),
-                commit=_upload(self.commit, d),
-                reject=_upload(self.reject, d),
-                hint=_upload(self.hint, d),
-                hint_high=_upload(self.hint_high, d),
-                n_ent=_upload(self.n_ent, d),
-                ent_term=_upload(self.ent_term, d),
-                ent_cc=_upload(self.ent_cc, d),
-            )
+                return _upload_into(into, self, rows=rows)
+            return Inbox(*[_upload(getattr(self, f)[rows], d)
+                           for f in _STAGED_INBOX_FIELDS])
+
+        with _capacity.METER.sanctioned("inbox_up"):
+            if pieces is not None:
+                return graphs.Split(stage(i, d, r) for d, r, i in pieces)
+            return stage(into, self.device, slice(None))
 
 
 class _InputBuilder:
@@ -2011,24 +1995,33 @@ class _InputBuilder:
     def applied(self, g: int, v: int) -> None:
         self._applied[g] = v
 
-    def to_device(self, into: StepInput | None = None) -> StepInput:
+    def to_device(self, into: StepInput | None = None,
+                  pieces: list | None = None):
         """The staged input on the device; written into ``into`` (a
-        compiled step's static input) when given."""
-        d = self.device
-        with _capacity.METER.sanctioned("input_up"):
+        compiled step's static input) when given.  ``pieces`` (a split
+        mesh): one ``(device, rows, into)`` per position, and the result
+        is the positions' inputs as a ``graphs.Split``, staged in one
+        crossing."""
+
+        def stage(into, d, rows):
             if into is not None:
                 return _upload_into(into, self, {
                     "tick": self._tick, "applied": self._applied,
-                    "quiesced": None})
+                    "quiesced": None}, rows)
             return StepInput(
-                prop_valid=_upload(self.prop_valid, d),
-                prop_cc=_upload(self.prop_cc, d),
-                ri_valid=_upload(self.ri_valid, d),
-                ri_low=_upload(self.ri_low, d),
-                ri_high=_upload(self.ri_high, d),
-                transfer_to=_upload(self.transfer_to, d),
-                tick=_upload(self._tick, d),
-                quiesced=torch.zeros(self._tick.shape, dtype=torch.bool,
-                                     device=d),
-                applied=_upload(self._applied, d),
+                prop_valid=_upload(self.prop_valid[rows], d),
+                prop_cc=_upload(self.prop_cc[rows], d),
+                ri_valid=_upload(self.ri_valid[rows], d),
+                ri_low=_upload(self.ri_low[rows], d),
+                ri_high=_upload(self.ri_high[rows], d),
+                transfer_to=_upload(self.transfer_to[rows], d),
+                tick=_upload(self._tick[rows], d),
+                quiesced=torch.zeros(self._tick[rows].shape,
+                                     dtype=torch.bool, device=d),
+                applied=_upload(self._applied[rows], d),
             )
+
+        with _capacity.METER.sanctioned("input_up"):
+            if pieces is not None:
+                return graphs.Split(stage(i, d, r) for d, r, i in pieces)
+            return stage(into, self.device, slice(None))

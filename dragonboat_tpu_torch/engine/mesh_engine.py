@@ -5,8 +5,8 @@ by running one NodeHost per machine and moving every inter-replica message
 through its TCP transport (transport.go:86-101, engine.go:1230-1364).  Here
 the replicas of a mesh-resident shard are rows of ONE kernel state laid out
 over a ``(g, r)`` mesh: replica ``i`` of a group sits in mesh position
-``(ig, i - 1)``, and message exchange is the permutation + route inside the
-serving step (``parallel/ici.py``) — the transport seam collapses into that
+``(ig, i - 1)``, and message exchange is the exchange inside the serving
+step (``parallel/ici.py``) — the transport seam collapses into that
 exchange while the host keeps the serving duties the single-device
 KernelEngine has:
 
@@ -16,10 +16,17 @@ KernelEngine has:
   - ONE batched ``save_raft_state`` fsync per LogDB per step;
   - snapshots, log queries, eviction to host engines as the slow path.
 
-Every mesh position lives on the engine's one device (the CUDA card unless
-the caller names the CPU; ``parallel/ici.py`` says why): where the
-reference's engine refuses a mesh larger than its device count, the port's
-attaches any geometry.
+Placement (``parallel/ici.py``): the engine takes a device grid, one
+device per mesh position in ``(ig, ir)`` order, and then each position
+owns its rows of the state, the carried inbox and the staged input on its
+own device (the split layout; a grid may repeat a device).  By default the
+grid follows the reference's ``jax.devices()[:g * r]``: ``cuda:0 ..
+g*r-1`` where the process sees that many cards.  Where it sees fewer, the
+reference's engine raises; the port's keeps every position on its one
+device (the CUDA card unless the caller names the CPU), so it attaches any
+geometry.  Lane writes land in the position that owns the row; the
+decimated reductions read the positions joined on the grid's first
+device.
 
 Deployment note: in this process every attached NodeHost drives its own
 replicas and ONE shared engine advances the mesh.  Payload bytes live in a
@@ -52,11 +59,14 @@ from dragonboat_tpu_torch.engine.kernel_engine import (
     _F_WITSNAP,
     _KERNEL_MTYPES,
     _LaneInit,
-    _put_rows,
-    _upload,
 )
 from dragonboat_tpu_torch.logger import get_logger
-from dragonboat_tpu_torch.parallel.ici import IciCluster, mesh_replica_ids
+from dragonboat_tpu_torch.parallel import ici
+from dragonboat_tpu_torch.parallel.ici import (
+    IciCluster,
+    mesh_grid,
+    mesh_replica_ids,
+)
 
 _LOG = get_logger("mesh_engine")
 
@@ -78,13 +88,18 @@ class MeshEngine(KernelEngine):
                  invariant_probe: bool = True,
                  capacity_watermark_pct: float = 10.0,
                  capacity_budget_bytes: int = 0,
-                 device=None) -> None:
+                 device=None, devices=None) -> None:
         dev = resolve_device(device)
         self.spec = spec
+        # what the caller asked for (attach_mesh_engine compares it)
+        self.placement = (dev, mesh_grid(spec.g_size * spec.replicas, dev,
+                                         devices))
+        grid = self.placement[1]
+        dev = grid[0] if grid else dev
         self.cluster = IciCluster(
             kp=kp, g_size=spec.g_size, replicas=spec.replicas,
             n_local=spec.n_local, num_groups=spec.g_size * spec.n_local,
-            device=dev)
+            device=dev, devices=grid)
         total = self.cluster.total_rows
         # read by KernelEngine.__init__ below: hub-fallback deliveries
         # stage slot-exact against route()'s layout (_InboxBuilder)
@@ -101,9 +116,9 @@ class MeshEngine(KernelEngine):
         # replica ids are fixed by the mesh addressing (route() targets
         # rid 1..R); rows keep them even while ABSENT
         rids = mesh_replica_ids(spec.g_size, spec.replicas, spec.n_local)
-        self.state = init_state(
+        self.state = self.cluster.shard(init_state(
             kp, total, replica_id=rids,
-            peer_ids=np.zeros((total, kp.num_peers), np.int32), device=dev)
+            peer_ids=np.zeros((total, kp.num_peers), np.int32), device=dev))
         # group-lane bookkeeping
         self._lane_of: dict[int, int] = {}            # shard_id -> lane
         # newest membership ccid written to each group's shared peer
@@ -389,13 +404,11 @@ class MeshEngine(KernelEngine):
             # group serves witnesses from the host engines instead
             self._evict(node, reason="witness member on a mesh group")
             return
-        s = self.state
-        dev = self.device
         # the applied CC releases THIS replica's one-in-flight gate only
         # (pycore clears pending_config_change per replica at apply) — a
         # lagging follower's apply must not release the leader row's
         # gate while a newer CC is still uncommitted there
-        s = s._replace(pending_cc=_put_rows(s.pending_cc, node.lane, False))
+        s = ici.write_rows(self.state, node.lane, {"pending_cc": False})
         # shared peer books: members apply the same CCs at different
         # steps, so only the NEWEST applied membership may write them —
         # a lagging member's view would roll the group's books back
@@ -414,12 +427,10 @@ class MeshEngine(KernelEngine):
                 i += 1
             members = list(self._members.get(node.shard_id, {}).values())
             lanes = np.array([mb.lane for mb in members], np.int64)
+            # every member's row, each in the position that owns it
             with _capacity.METER.sanctioned("membership_up"):
-                jp = _upload(pids[None, :], dev)
-                jk = _upload(kinds[None, :], dev)
-                rows = _upload(lanes, dev)
-            s = s._replace(pid=_put_rows(s.pid, rows, jp),
-                           kind=_put_rows(s.kind, rows, jk))
+                s = ici.write_rows(s, lanes, {"pid": pids[None, :],
+                                              "kind": kinds[None, :]})
             self._kind_np[lanes] = kinds
             self._pid_np[lanes] = pids
         self.state = s
@@ -457,7 +468,10 @@ def attach_mesh_engine(kp: KP.KernelParams, spec: MeshSpec,
                        invariant_probe: bool = True,
                        capacity_watermark_pct: float = 10.0,
                        capacity_budget_bytes: int = 0,
-                       device=None) -> MeshEngine:
+                       device=None, devices=None) -> MeshEngine:
+    """The process-wide engine of ``spec.name`` (made by the first
+    caller).  ``devices`` is the mesh's device grid (``MeshEngine``);
+    every caller must ask for the same placement."""
     dev = resolve_device(device)
     with _REG_MU:
         eng = _REGISTRY.get(spec.name)
@@ -472,7 +486,7 @@ def attach_mesh_engine(kp: KP.KernelParams, spec: MeshSpec,
                              invariant_probe=invariant_probe,
                              capacity_watermark_pct=capacity_watermark_pct,
                              capacity_budget_bytes=capacity_budget_bytes,
-                             device=dev)
+                             device=dev, devices=devices)
             _REGISTRY[spec.name] = eng
         else:
             if eng.spec != spec:
@@ -482,10 +496,12 @@ def attach_mesh_engine(kp: KP.KernelParams, spec: MeshSpec,
             if eng.kp != kp:
                 raise RuntimeError(
                     f"mesh '{spec.name}' kernel params mismatch")
-            if eng.device != dev:
+            want = (dev, mesh_grid(spec.g_size * spec.replicas, dev,
+                                   devices))
+            if eng.placement != want:
                 raise RuntimeError(
                     f"mesh '{spec.name}' device mismatch: engine is on "
-                    f"{eng.device}, caller wants {dev}")
+                    f"{eng.placement}, caller wants {want}")
         eng._refs += 1
         return eng
 

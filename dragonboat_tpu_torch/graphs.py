@@ -42,13 +42,22 @@ Captures use ``capture_error_mode="thread_local"`` (engines on other
 threads keep allocating and syncing while one captures) and are
 serialized process-wide by one lock.  A sync inside the captured region
 fails the capture; the process-wide sync debug mode is left alone here,
-since setting it would fail other threads' legitimate syncs.
+since setting it would fail other threads' legitimate syncs.  Destroying
+a graph on the capturing thread fails the capture too (the collector may
+free a closed engine's graphs there at any allocation): a graph whose
+last reference goes while a capture is open is destroyed when it ends.
 
 Memory: graphs share a ``Pool`` when they never run at the same time.  The
 module-level entries share ``DEFAULT_POOL`` (one thread drives them);
 ``fork`` gives an engine its own cache and pool.  ``clear()`` drops every
 module-level graph (and its buffers), as a caller does when it is done
 with a cluster.
+
+A tree held as per-position pieces (``Split``: a split mesh, each piece
+on its own device) is never captured as one graph.  An entry compiled
+with ``split=`` hands such a call to that function, which replays
+per-position entries (``Compiled.position``), each with its own cache and
+graphs on its position's device, and moves data between them itself.
 
 ``stand_in()`` selects a CPU replayer for tests: capture runs ``fn`` once
 on static buffers, a replay copies the inputs into them, runs ``fn`` and
@@ -68,12 +77,14 @@ import weakref
 
 import torch
 
-_state = {"eager": False, "stand_in": False}
+_state = {"eager": False, "stand_in": False, "capturing": False}
 # thread-local: mode None (eager execution), "warmup" (tallies dropped),
 # "capture" (tallies recorded into _tls.record)
 _tls = threading.local()
 # serializes every capture in the process
 _capture_mu = threading.Lock()
+# CUDA graphs released while a capture was open, destroyed at its end
+_doomed: list = []
 # one capture stream per device (captures are serialized)
 _side_streams: dict = {}
 # the module-level entries (fork()s are owned by their engines)
@@ -100,6 +111,21 @@ class Pool:
 
 
 DEFAULT_POOL = Pool()
+
+
+class Split(tuple):
+    """One tree held as per-position pieces, in position order: piece
+    ``p`` holds leading rows ``[p * n, (p + 1) * n)`` of the whole on its
+    own device (a split mesh, ``parallel/ici.py``).  A field of
+    NamedTuple pieces maps over them: ``split.term`` is the Split of
+    every piece's ``term``."""
+
+    __slots__ = ()
+
+    def __getattr__(self, name: str) -> "Split":
+        if not self or name not in getattr(type(self[0]), "_fields", ()):
+            raise AttributeError(name)
+        return Split(getattr(p, name) for p in self)
 
 
 # -- modes -------------------------------------------------------------------
@@ -232,6 +258,19 @@ def _signature(tdef, leaves) -> tuple:
     return (tdef, tuple((tuple(t.shape), t.dtype) for t in leaves))
 
 
+@contextlib.contextmanager
+def _capturing():
+    """A capture open for the block (the caller holds ``_capture_mu``):
+    a graph whose last reference goes meanwhile, on any thread, is kept in
+    ``_doomed`` and destroyed when the block ends (``_Graph.__del__``)."""
+    _state["capturing"] = True
+    try:
+        yield
+    finally:
+        _state["capturing"] = False
+        _doomed.clear()
+
+
 def _abandon(cg, dev, pool_handle, pool: Pool) -> None:
     """End a capture whose body raised: the stream leaves capture mode,
     the allocator stops recording into the pool, and the pool and the
@@ -276,20 +315,30 @@ class _Graph:
         self.out_tdef = None
         self.record = _Record()
         self.cuda_graph = None          # torch.cuda.CUDAGraph on the card
+        self.device = None              # the device it was captured on
         self.body = None                # the stand-in's re-run
         self.capture_s = 0.0            # host seconds of warm-up and capture
+
+    def __del__(self) -> None:
+        if self.cuda_graph is not None and _state["capturing"]:
+            _doomed.append(self.cuda_graph)
 
 
 class Compiled:
     """``fn`` under graph capture; see the module docstring."""
 
     def __init__(self, fn, static_argnums=(), donate_argnums=(),
-                 pool: Pool | None = None, register: bool = True) -> None:
+                 pool: Pool | None = None, register: bool = True,
+                 split=None) -> None:
         self.fn = fn
         self.static_argnums = tuple(sorted(static_argnums))
         self.donate_argnums = tuple(sorted(donate_argnums))
         self.pool = pool or DEFAULT_POOL
+        # what runs a call given Split pieces: split(self, *args)
+        self.split = split
         self._graphs: dict = {}  # guarded-by: _mu
+        # per-position entries of the split form, by key
+        self._positions: dict = {}  # guarded-by: _mu
         self._last: _Graph | None = None
         self._mu = threading.RLock()
         self.__name__ = getattr(fn, "__name__", "compiled")
@@ -303,23 +352,46 @@ class Compiled:
         default): what an engine replaying on its own thread needs."""
         return Compiled(fn or self.fn, self.static_argnums,
                         self.donate_argnums, pool=pool or Pool(),
-                        register=False)
+                        register=False, split=self.split)
+
+    def position(self, key, fn, static_argnums=(),
+                 donate_argnums=()) -> "Compiled":
+        """The per-position entry ``key`` of this entry's split form
+        (made on first use): ``fn`` compiled with a cache, graphs and pool
+        of its own, so a position's graph is captured on that position's
+        device and its buffers are never another position's."""
+        with self._mu:
+            c = self._positions.get(key)
+            if c is None:
+                c = self._positions[key] = Compiled(
+                    fn, static_argnums, donate_argnums, pool=Pool(),
+                    register=False)
+            return c
+
+    def positions(self) -> dict:
+        """The per-position entries made so far, by key."""
+        with self._mu:
+            return dict(self._positions)
 
     # jax's executable-cache probe: capacity.TrackedEntry counts a compile
     # whenever it grows
     def _cache_size(self) -> int:
-        return len(self._graphs)
+        return len(self._graphs) + sum(
+            c._cache_size() for c in self.positions().values())
 
     def capture_seconds(self) -> list:
         """Host seconds each cached graph took to warm up and capture."""
         with self._mu:
-            return [g.capture_s for g in self._graphs.values()]
+            own = [g.capture_s for g in self._graphs.values()]
+        return own + [s for c in self.positions().values()
+                      for s in c.capture_seconds()]
 
     def clear(self) -> None:
         """Drop every graph of this entry with its buffers."""
         with self._mu:
             self._graphs.clear()
             self._last = None
+            self._positions.clear()
 
     def last_static(self, argnum: int):
         """The static input tree of argument ``argnum`` of the graph this
@@ -329,6 +401,9 @@ class Compiled:
         return None if g is None else g.static_args[argnum]
 
     def __call__(self, *args):
+        if self.split is not None and any(isinstance(a, Split)
+                                          for a in args):
+            return self.split(self, *args)
         if _mode() is not None:
             # inside another entry's warm-up or capture: run inline
             return self.fn(*args)
@@ -438,7 +513,7 @@ class Compiled:
                     body()
                 cg = torch.cuda.CUDAGraph()
                 pool = self.pool.handle()
-                with _in_mode("capture", g.record):
+                with _in_mode("capture", g.record), _capturing():
                     cg.capture_begin(pool=pool,
                                      capture_error_mode="thread_local")
                     try:
@@ -450,6 +525,7 @@ class Compiled:
             cur.wait_stream(side)
         self.pool.add(cg)
         g.cuda_graph = cg
+        g.device = dev
 
     # -- replay ------------------------------------------------------------
 
@@ -463,10 +539,13 @@ class Compiled:
             # a caller's leaf that is another static input: read it
             # before the copies overwrite it
             srcs = [t.clone() if id(t) in g.in_ids else t for t in srcs]
-        _copy_all(dsts, srcs)
         if g.cuda_graph is not None:
-            g.cuda_graph.replay()
+            # a graph replays on the current stream of its own device
+            with torch.cuda.device(g.device):
+                _copy_all(dsts, srcs)
+                g.cuda_graph.replay()
         else:
+            _copy_all(dsts, srcs)
             with _in_mode("warmup", _Record()):
                 new, _td = g.body()
             got = [(o, n) for o, n in zip(g.out_leaves, new) if o is not n]
@@ -483,9 +562,11 @@ class Compiled:
         return _unflatten(g.out_tdef, iter(out))
 
 
-def compiled(fn, *, static_argnums=(), donate_argnums=()) -> Compiled:
-    """``fn`` as a compiled entry (module docstring)."""
-    return Compiled(fn, static_argnums, donate_argnums)
+def compiled(fn, *, static_argnums=(), donate_argnums=(),
+             split=None) -> Compiled:
+    """``fn`` as a compiled entry (module docstring); ``split`` drives a
+    call given ``Split`` pieces."""
+    return Compiled(fn, static_argnums, donate_argnums, split=split)
 
 
 def bind(fn, like: Compiled, pool: Pool) -> Compiled:
@@ -510,6 +591,14 @@ def fresh(tree):
     the next call as ``jax.jit``'s do."""
     leaves: list = []
     tdef = _flatten(tree, leaves)
-    if not _graph_path(leaves) or _mode() is not None:
+    if _mode() is not None or not leaves or _state["eager"]:
+        return tree
+    devs = {t.device for t in leaves}
+    if len(devs) > 1:
+        # Split pieces on several devices: one clone per leaf
+        if any(d.type == "cuda" for d in devs):
+            return _unflatten(tdef, iter([t.clone() for t in leaves]))
+        return tree
+    if not _graph_path(leaves):
         return tree
     return _unflatten(tdef, iter(_clone_all(leaves)))

@@ -192,6 +192,14 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def on(device: torch.device):
+    """The context of one launch: ``device`` made the current device.  The
+    library launches on the current device, which must own the stream it
+    is given; a caller on one card may hand a wrapper the tensors of
+    another (a split mesh's positions)."""
+    return torch.cuda.device(device)
+
+
 def check_launch(rc: int, name: str) -> None:
     """Raise if a launch returned a CUDA error; count it otherwise (on the
     graph this thread captures, if any: its replays count it)."""

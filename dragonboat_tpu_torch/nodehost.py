@@ -14,8 +14,10 @@ port's ``KernelEngine`` runs device-resident shards as rows of one
 ``[G]`` state on the host's ``device`` — the CUDA card unless the caller
 names the CPU (``NodeHost(..., device="cpu")``).  Mesh-resident shards
 (``Config.mesh_resident`` with ``ExpertConfig.mesh``) attach to the port's
-process-wide ``MeshEngine``, whose mesh positions all live on that same
-device (``parallel/ici.py``).
+process-wide ``MeshEngine``, whose mesh positions live on the device grid
+``NodeHost(..., mesh_devices=[...])`` names, one device per position (by
+default ``cuda:0 .. g*r-1`` where the process sees that many cards, else
+every position on ``device``; ``parallel/ici.py``).
 
 Replicas are addressed by raft address or, with
 ``address_by_node_host_id``, by NodeHostID through the gossip view
@@ -124,12 +126,15 @@ class NodeHost:
     def __init__(self, nhconfig: NodeHostConfig,
                  logdb: ILogDB | None = None,
                  auto_run: bool = True,
-                 device=None) -> None:
+                 device=None, mesh_devices=None) -> None:
         nhconfig.validate()
         _refuse_off_path(nhconfig)
         # the device the kernel engine's state lives on: the CUDA card
         # unless the caller names the CPU (raises with no card)
         self.device = resolve_device(device)
+        # the mesh engine's device grid, one device per mesh position in
+        # (ig, ir) order (parallel/ici.py); None = the default grid
+        self.mesh_devices = mesh_devices
         self.config = nhconfig
         from dragonboat_tpu_torch.vfs import default_fs
 
@@ -951,7 +956,7 @@ class NodeHost:
                         self.config.expert.capacity_watermark_pct),
                     capacity_budget_bytes=(
                         self.config.expert.capacity_device_budget_bytes),
-                    device=self.device)
+                    device=self.device, devices=self.mesh_devices)
             except Exception as e:
                 # geometry, kernel params or device mismatch with an
                 # already-attached engine

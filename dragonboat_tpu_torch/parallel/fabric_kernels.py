@@ -69,9 +69,10 @@ def quorum_match(match: torch.Tensor, voting: torch.Tensor,
     out = torch.empty((G,), dtype=I32, device=match.device)
     if G == 0:
         return out
-    rc = kernels.library().dbt_quorum_match(
-        match.data_ptr(), voting.data_ptr(), quorum.data_ptr(),
-        out.data_ptr(), G, Pn, kernels.stream_ptr(match.device))
+    with kernels.on(match.device):
+        rc = kernels.library().dbt_quorum_match(
+            match.data_ptr(), voting.data_ptr(), quorum.data_ptr(),
+            out.data_ptr(), G, Pn, kernels.stream_ptr(match.device))
     kernels.check_launch(rc, "quorum_match")
     return out
 
@@ -102,9 +103,10 @@ def commit_quorum(match: torch.Tensor, kind: torch.Tensor) -> torch.Tensor:
     out = torch.empty((G,), dtype=I32, device=match.device)
     if G == 0:
         return out
-    rc = kernels.library().dbt_commit_quorum(
-        match.data_ptr(), kind.data_ptr(), out.data_ptr(), G, Pn,
-        KP.K_VOTER, KP.K_WITNESS, kernels.stream_ptr(match.device))
+    with kernels.on(match.device):
+        rc = kernels.library().dbt_commit_quorum(
+            match.data_ptr(), kind.data_ptr(), out.data_ptr(), G, Pn,
+            KP.K_VOTER, KP.K_WITNESS, kernels.stream_ptr(match.device))
     kernels.check_launch(rc, "quorum_match")
     return out
 
@@ -138,9 +140,10 @@ def gather_lanes(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((G, M), dtype=I32, device=vals.device)
     if G == 0 or M == 0:
         return out
-    rc = kernels.library().dbt_gather_lanes(
-        vals.data_ptr(), idx.data_ptr(), out.data_ptr(), G, K, M,
-        kernels.stream_ptr(vals.device))
+    with kernels.on(vals.device):
+        rc = kernels.library().dbt_gather_lanes(
+            vals.data_ptr(), idx.data_ptr(), out.data_ptr(), G, K, M,
+            kernels.stream_ptr(vals.device))
     kernels.check_launch(rc, "gather_lanes")
     return out
 
@@ -204,9 +207,10 @@ def gather_lanes_multi(fields: Sequence[torch.Tensor],
     field_bytes = (ctypes.c_int * nf)(*(_FIELD_DTYPES[f.dtype] for f in fields))
     lane_ptrs = (ctypes.c_void_p * nl)(*(lane.data_ptr() for lane in lanes))
     out_ptrs = (ctypes.c_void_p * (nl * nf))(*(o.data_ptr() for per in outs for o in per))
-    rc = kernels.library().dbt_gather_lanes_multi(
-        ctypes.addressof(field_ptrs), ctypes.addressof(field_bytes), nf,
-        ctypes.addressof(lane_ptrs), nl, ctypes.addressof(out_ptrs),
-        N, Rt, Rs, K, kernels.stream_ptr(dev))
+    with kernels.on(dev):
+        rc = kernels.library().dbt_gather_lanes_multi(
+            ctypes.addressof(field_ptrs), ctypes.addressof(field_bytes), nf,
+            ctypes.addressof(lane_ptrs), nl, ctypes.addressof(out_ptrs),
+            N, Rt, Rs, K, kernels.stream_ptr(dev))
     kernels.check_launch(rc, "gather_lanes")
     return outs

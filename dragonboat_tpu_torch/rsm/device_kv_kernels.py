@@ -66,11 +66,13 @@ def apply_window(kv: DeviceKV, sm_state: dict, cmd_lanes: torch.Tensor,
     ok = torch.empty((G, AB), dtype=torch.bool, device=keys.device)
     if G == 0 or AB == 0:
         return sm_state, (results, ok)
-    rc = kernels.library().dbt_kv_apply(
-        keys.data_ptr(), vals.data_ptr(), count.data_ptr(),
-        cmd_lanes.data_ptr(), valid_mask.data_ptr(), results.data_ptr(),
-        ok.data_ptr(), None if serial_rows is None else serial_rows.data_ptr(),
-        G, T, kv.probe_depth, AB, int(kv.hash_keys),
-        kernels.stream_ptr(keys.device))
+    with kernels.on(keys.device):
+        rc = kernels.library().dbt_kv_apply(
+            keys.data_ptr(), vals.data_ptr(), count.data_ptr(),
+            cmd_lanes.data_ptr(), valid_mask.data_ptr(), results.data_ptr(),
+            ok.data_ptr(),
+            None if serial_rows is None else serial_rows.data_ptr(),
+            G, T, kv.probe_depth, AB, int(kv.hash_keys),
+            kernels.stream_ptr(keys.device))
     kernels.check_launch(rc, "kv_apply")
     return sm_state, (results, ok)

@@ -12,6 +12,7 @@ package's.  G = 8 groups x 3 and a few steps keep the file cheap.
 """
 
 import itertools
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -282,3 +283,26 @@ def test_kernel_engine_through_the_stand_in_equals_eager(depth):
             assert not convert.diff_leaves(sa, sb), i
             assert ap_a == ap_b, i
     assert max(ap for _s, ap in eager[-1]) > 0
+
+
+def test_a_graph_released_during_a_capture_is_destroyed_at_its_end():
+    """Destroying a CUDA graph on the capturing thread invalidates the
+    capture (the collector may free a closed engine's graphs there): a
+    graph whose last reference goes while a capture is open is kept until
+    the capture ends."""
+
+    class Held:  # stands for the torch.cuda.CUDAGraph
+        pass
+
+    g = graphs._Graph()
+    g.cuda_graph = Held()
+    alive = weakref.ref(g.cuda_graph)
+    with graphs._capturing():
+        del g
+        assert alive() is not None
+    assert alive() is None and not graphs._doomed
+    g = graphs._Graph()
+    g.cuda_graph = Held()
+    alive = weakref.ref(g.cuda_graph)
+    del g
+    assert alive() is None
