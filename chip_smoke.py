@@ -229,13 +229,43 @@ Phases, each printing one line (any failure exits non-zero):
    from all replicas, the link cut and healed, launches counted per
    position) ``[mesh_split_nodehost]``; K1's and K2's entries timed on
    the cell's inputs ``[mesh_split_kernel]``;
-13. the ``kernels`` JSON line, one row per kernel with the numbers of the
+13. ops: the membership and log-lifecycle operations on device- and
+   mesh-resident shards.  ``dragonboat_tpu_torch.lockstep``'s drive
+   (``auto_run=False``, the reference engine tests' geometry, the
+   reductions on) with the port on the CPU against the port on the card:
+   its KernelEngine script (a witness added after the leader lane's ring
+   compacted and caught up through the stripped witness snapshot, a
+   voter closed, a leader transfer, a snapshot request, a restart from
+   tan directories) ``[ops_parity]`` and its mesh script on a (g=2, r=4)
+   mesh (a follower read, a transfer, a snapshot, a restart, then a
+   witness that escalates the group off the mesh and a restart that mesh
+   admission refuses) ``[ops_parity_mesh]``, every engine state leaf,
+   reduction snapshot, replica and witness log equal after every round.
+   Then ``auto_run=True`` on the card: 2 device-resident voters and a
+   host witness, 10 writes, the witness's log METADATA only, a voter
+   closed, 5 writes committed without eviction, then the stripped
+   witness snapshot after compaction ``[ops_witness]``; pipeline depth 1
+   on tan directories: 30 writes, compaction, a restart with every write
+   read back on every replica, the pending step context drained, then
+   the reference's partition monkey, its history linearizable
+   ``[ops_depth1]``; the (g=2, r=4) mesh on the one-device layout: a
+   restart from disk, the witness escalation, the admission refusal on
+   restart ``[ops_mesh]``; in every cell K1's launches exactly a CPU
+   step's count per engine step (the card's steps alone where the CPU
+   runs beside it), K1 (and in the mesh cells K2, once a serve step)
+   bitwise equal to its plain arm on tapped inputs.  Then the three user
+   examples (``dragonboat_tpu_torch.examples``) as subprocesses on the
+   card, ``multigroup_device`` at its 32 shards ``[ops_examples]``; K1's
+   and K2's entries timed on the cells' inputs ``[ops_kernel]``;
+14. the ``kernels`` JSON line, one row per kernel with the numbers of the
    entry the main path launches (``path`` "slice": launches phase 5's;
    ``path`` "mesh": launches phase 8's NodeHost cell's; ``path``
    "verify": launches phase 9's; ``path`` "gossip_tcp": launches phase
    10's cell's; ``path`` "scale": launches phase 11's phase A; ``path``
    "scale_b": K1's launches in phase 11's phase B; ``path``
-   "mesh_split": launches phase 12's NodeHost cell's), then the final
+   "mesh_split": launches phase 12's NodeHost cell's; ``path`` "ops":
+   K1's launches in phase 13's witness and depth-1 cells; ``path``
+   "ops_mesh": launches phase 13's mesh cell's), then the final
    ``{"ok": true, ...}`` line.
 
 Every number the run takes is printed on these lines.  Needs no network
@@ -253,7 +283,7 @@ every fast seed, the depth-1 schedule, the hotspot and the wide
 schedule; ``--gossip [SHARDS]`` only phases 1, 2
 and 10, its cell at SHARDS shards (GT_SHARDS unless given); ``--scale
 [GROUPS]`` only phases 1, 2 and 11, at GROUPS (SCALE_GROUPS unless
-given).
+given); ``--ops`` only phases 1, 2 and 13.
 """
 
 from __future__ import annotations
@@ -365,6 +395,17 @@ GT_SHARDS = 512
 # phase B at SCALE_GROUPS device-resident shards on one NodeHost with its
 # wave of proposals to shards 1-1000
 SCALE_GROUPS, SCALE_A_STEPS, SCALE_WAVE = 100_000, 5, 1000
+# phase 13, the membership and log-lifecycle operations: the lockstep
+# drive's script seed of each case ((a) KernelEngine, (c) mesh), the
+# witness cell's writes (the reference's 10 with the witness, 5 with a
+# voter down, 60 before the stripped snapshot), the depth-1 cell's (the
+# reference's 30), the monkey's least partition seconds and completed
+# operations a window, and the multigroup example's shards (its
+# default, the reference's 32)
+OPS_SEEDS = {False: 3, True: 11}
+OPS_WITNESS_WRITES, OPS_SOLO_WRITES, OPS_STRIP_WRITES = 10, 5, 60
+OPS_D1_WRITES, OPS_MONKEY_S, OPS_MONKEY_OPS = 30, 2.0, 4
+OPS_EXAMPLE_SHARDS = 32
 # the entry of each kernel that the main path launches
 MAIN_PATH_ENTRIES = ("commit_quorum", "gather_lanes_multi", "kv_apply")
 # the ExpertConfig switches that turn the three decimated reductions off
@@ -1390,13 +1431,14 @@ def _sync_pass(torch, fn, steps: int) -> dict:
 
 
 def _count_calls(module, attr: str, counts: dict, thread: int | None = None,
-                 regraph: bool = True):
+                 regraph: bool = True, cuda_only: bool = False):
     """Count the calls of ``module.attr`` (a function its callers look up
     there) in ``counts[attr]``, only those made in ``thread`` when one is
-    given; returns the function that takes the counter out.  A call inside
-    a compiled entry's graph counts at every replay (``graphs.tally``).
-    With ``regraph`` the module-level graphs are dropped when the counter
-    goes in and when it comes out, so the graphs replayed in between are
+    given, only those on card tensors with ``cuda_only``; returns the
+    function that takes the counter out.  A call inside a compiled
+    entry's graph counts at every replay (``graphs.tally``).  With
+    ``regraph`` the module-level graphs are dropped when the counter goes
+    in and when it comes out, so the graphs replayed in between are
     captured with it."""
     import threading
 
@@ -1409,7 +1451,8 @@ def _count_calls(module, attr: str, counts: dict, thread: int | None = None,
         counts[attr] += 1
 
     def counted(*args, **kw):
-        if thread is None or threading.get_ident() == thread:
+        if ((thread is None or threading.get_ident() == thread)
+                and (not cuda_only or _on_card(args))):
             graphs.tally(bump)
         return orig(*args, **kw)
 
@@ -2091,14 +2134,20 @@ def _flat(x) -> list:
     return [x]
 
 
-def _tap(module, attr: str, every: int):
+def _on_card(args) -> bool:
+    """Whether a call's arguments hold a tensor on the card."""
+    return any(getattr(t, "is_cuda", False) for t in _flat(args))
+
+
+def _tap(module, attr: str, every: int, cuda_only: bool = False):
     """Route ``module.attr``, a kernel wrapper as a call site imported it
     (K1's ``commit_quorum`` in core/kernel and ``quorum_match`` in
     core/invariants, K2's ``gather_lanes_multi`` in core/router), through a
     tap that counts every call and clones the inputs of every
     ``every``-th call (up to TAP_KEEP) before it launches; returns the
-    tap's record and the function that takes the tap out.  In a graph
-    the call's inputs are copied inside the graph, and every replay counts
+    tap's record and the function that takes the tap out (``cuda_only``:
+    calls on CPU tensors pass untapped and uncounted).  In a graph the
+    call's inputs are copied inside the graph, and every replay counts
     the call and clones that copy when its turn comes; the module-level
     graphs are dropped when the tap goes in and when it comes out."""
     from dragonboat_tpu_torch import graphs
@@ -2111,6 +2160,8 @@ def _tap(module, attr: str, every: int):
             rec["inputs"].append(_clone(args))
 
     def tap(*args):
+        if cuda_only and not _on_card(args):
+            return orig(*args)
         held = _clone(args) if graphs.capturing() else args
         graphs.tally(lambda: record(held))
         return orig(*args)
@@ -2572,6 +2623,17 @@ def _reduction_snapshots(eng) -> tuple:
             eng._inv_seq) + digests
 
 
+def _snapshots_equal(ra, rb, where) -> None:
+    """Two ``_reduction_snapshots`` equal: results and digests."""
+    from dragonboat_tpu_torch import convert
+
+    check(ra[:4] == rb[:4], f"card != CPU reductions at {where}")
+    for da, db in zip(ra[4:], rb[4:]):
+        check((da is None) == (db is None)
+              and (da is None or not convert.diff_leaves(da, db)),
+              f"card != CPU digests at {where}")
+
+
 def _nh_parity_run(dev, tag, mesh=False) -> list:
     """One manual-drive script (auto_run=False, one shard, the reference
     engine tests' geometry; ``mesh``: on a one-group mesh) on ``dev``:
@@ -2738,11 +2800,7 @@ def _nh_parity(torch, dev, tag, mesh=False) -> dict:
             check(not bad, f"card != CPU at round {i}, host {r + 1}: {bad}")
             check((ap_a, kv_a) == (ap_b, kv_b),
                   f"card != CPU SM at round {i}, host {r + 1}")
-            check(ra[:4] == rb[:4], f"card != CPU reductions at round {i}, host {r + 1}")
-            for da, db in zip(ra[4:], rb[4:]):
-                check((da is None) == (db is None)
-                      and (da is None or not convert.diff_leaves(da, db)),
-                      f"card != CPU digests at round {i}, host {r + 1}")
+            _snapshots_equal(ra, rb, f"round {i}, host {r + 1}")
     applied = max(x[1] for x in card[-1])
     check(applied > 0, "parity script applied nothing")
     probes = card[-1][0][3][3]
@@ -4391,6 +4449,545 @@ def phase_scale(torch, dev, smi: str, groups: int = SCALE_GROUPS) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: membership and log-lifecycle operations (witnesses, snapshots
+# and compaction, leader transfer, restart from disk, witness escalation
+# off the mesh), and the user examples
+# ---------------------------------------------------------------------------
+
+
+class _OpsMeter:
+    """K1 tapped where the step (``commit_quorum``) and the invariant
+    probe (``quorum_match``) call it, on the mesh K2 where the route calls
+    it (``gather_lanes_multi``), and the engine steps counted (the
+    KernelEngine's two step entries, the mesh's steps and routes), over
+    one cell; with ``cuda_only`` only the calls on card tensors (a cell
+    that drives the CPU beside the card)."""
+
+    def __init__(self, torch, mesh: bool = False, cuda_only: bool = False):
+        from dragonboat_tpu_torch import kernels
+        from dragonboat_tpu_torch.core import invariants as inv
+        from dragonboat_tpu_torch.core import kernel as K
+        from dragonboat_tpu_torch.core import router
+        from dragonboat_tpu_torch.engine import kernel_engine
+        from dragonboat_tpu_torch.parallel import ici
+
+        self.torch, self.mesh = torch, mesh
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        self.counts: dict = {}
+        self.step_tap, u1 = _tap(K, "commit_quorum", K1_TAP_EVERY, cuda_only)
+        self.probe_tap, u2 = _tap(inv, "quorum_match", 1, cuda_only)
+        self._undo = [u1, u2]
+        if mesh:
+            self.route_tap, u3 = _tap(router, "gather_lanes_multi", 7, cuda_only)
+            self._undo.append(u3)
+            mod, attrs = ici, ("step", "route")
+        else:
+            mod, attrs = kernel_engine, ("kernel_step", "kernel_step_donated")
+        self._undo += [_count_calls(mod, a, self.counts, cuda_only=cuda_only)
+                       for a in attrs]
+        self.launches = None
+
+    def stop(self) -> None:
+        """Read the launches and take the taps out (once)."""
+        from dragonboat_tpu_torch import kernels
+
+        if self.launches is None:
+            self.torch.cuda.synchronize()
+            self.launches = dict(kernels.launches)
+            self.calls = (self.step_tap["calls"], self.probe_tap["calls"],
+                          dict(self.counts))
+        while self._undo:
+            self._undo.pop()()
+
+    def checked(self, name: str, kp) -> dict:
+        """K1 exactly a CPU step's count per engine step (plus the
+        probe's), K2 once per route on the mesh and never elsewhere, no
+        K3; K1 (and K2) bitwise equal to their plain arms on the tapped
+        inputs."""
+        torch = self.torch
+        launches = self.launches
+        step_calls, probe_calls, counts = self.calls
+        per_step = _k1_calls_per_step(kp)
+        if self.mesh:
+            steps, routes = counts["step"], counts["route"]
+            check(routes > 0 and routes == steps,
+                  f"{name}: {steps} mesh steps, {routes} routes")
+            check(self.route_tap["calls"] == routes
+                  and launches["gather_lanes"] == K2_PER_ROUTE * routes,
+                  f"{name}: {launches['gather_lanes']} K2 launches in {routes} routes")
+        else:
+            steps = counts["kernel_step"] + counts["kernel_step_donated"]
+            check(launches["gather_lanes"] == 0,
+                  f"{name}: K2 launched behind the KernelEngine")
+        check(steps > 0 and step_calls == per_step * steps,
+              f"{name}: {step_calls} K1 launches by {steps} engine steps, "
+              f"not {per_step} a step")
+        check(launches["quorum_match"] == step_calls + probe_calls,
+              f"{name}: K1's launches are not the step's and the probe's calls")
+        check(launches["kv_apply"] == 0, f"{name}: kv_apply launched off its path")
+        out = {"engine_steps": steps, "k1_per_engine_step": per_step,
+               "k1_launches": launches["quorum_match"],
+               "k1_probe_launches": probe_calls,
+               "k2_launches": launches["gather_lanes"],
+               **_tapped(torch, self.step_tap["inputs"], "k1_tapped", "commit_quorum")}
+        if probe_calls:
+            out.update(_tapped(torch, self.probe_tap["inputs"], "k1_probe_tapped"))
+        if self.mesh:
+            out.update(_tapped(torch, self.route_tap["inputs"], "k2_tapped",
+                               "gather_lanes_multi"))
+        for key in ("k1_tapped", "k1_probe_tapped", "k2_tapped"):
+            check(out.get(f"{key}_mismatches", 0) == 0,
+                  f"{name}: {key} differs from its plain arm")
+        return out
+
+
+def _step_pctiles(engines) -> dict:
+    """Engine step ms p50/p90 over the engines' step timers."""
+    steps = [x / 1e3 for eng in engines for x in eng._step_timer.samples]
+    check(len(steps) > 0, "no engine step was timed")
+    return {"step_ms_p50": float(np.percentile(steps, 50)),
+            "step_ms_p90": float(np.percentile(steps, 90)),
+            "step_samples": len(steps)}
+
+
+def _ops_reductions_equal(a, b, where) -> None:
+    """Two engines' reduction snapshots equal (card and CPU)."""
+    _snapshots_equal(_reduction_snapshots(a), _reduction_snapshots(b), where)
+
+
+def _ops_parity(torch, dev, mesh: bool) -> dict:
+    """[ops_parity] / [ops_parity_mesh]: the lockstep drive of
+    ``dragonboat_tpu_torch.lockstep`` (the operations of the CPU tests'
+    cases (a) and (c)), the port on the CPU against the port on the card:
+    every engine state leaf, reduction snapshot, replica and witness log
+    equal after every round; the card's K1 (and K2) launches per engine
+    step counted and tapped."""
+    import tempfile
+
+    from dragonboat_tpu_torch import convert, lockstep
+    from dragonboat_tpu_torch import request as req
+    from dragonboat_tpu_torch.config import (
+        Config,
+        EngineConfig,
+        ExpertConfig,
+        MeshSpec,
+        NodeHostConfig,
+    )
+    from dragonboat_tpu_torch.nodehost import NodeHost
+
+    def side(device):
+        return lockstep.Side(
+            NodeHost, NodeHostConfig, ExpertConfig, EngineConfig, Config,
+            MeshSpec, _kv_sm, {"device": device},
+            lambda eng, tree: convert.to_numpy(eng._dispatch.join(tree)), req)
+
+    t0 = time.perf_counter()
+    name = "ops_parity_mesh" if mesh else "ops_parity"
+    meter = _OpsMeter(torch, mesh=mesh, cuda_only=True)
+    with tempfile.TemporaryDirectory(prefix="ops") as root:
+        ls = lockstep.Lockstep({"c": side("cpu"), "g": side(dev)}, root,
+                               f"ops{int(mesh)}x{time.monotonic_ns()}",
+                               _ops_reductions_equal, mesh=mesh)
+        try:
+            try:
+                steps = iter(lockstep.script(OPS_SEEDS[mesh], 100_000))
+                seen = (lockstep.mesh_ops if mesh else lockstep.kernel_ops)(ls, steps)
+            except AssertionError as e:
+                raise SmokeFailure(f"{name}: card != CPU: {e}") from e
+            finally:
+                meter.stop()
+        finally:
+            ls.close_all()
+    return {"case": "(c) mesh (g=2, r=4)" if mesh else "(a) KernelEngine, depth 0",
+            "card_vs_cpu": "equal every round", **seen,
+            **meter.checked(name, ls.engines["g"][0].kp),
+            **_step_pctiles([e for e in ls.engines["g"] if e._step_timer.samples]),
+            "seconds": time.perf_counter() - t0}
+
+
+def _ops_hosts(tag, dev, rids=(1, 2), depth=0, dirs=None, mesh=None,
+               snapshot_entries=0, compaction_overhead=5):
+    """NodeHosts ``rids`` of one shard (auto_run) with the reference
+    engine tests' geometry: device-resident, or mesh-resident on
+    ``mesh`` (a MeshSpec's keywords), ``dirs`` their node_host_dirs."""
+    from dragonboat_tpu_torch import lockstep
+    from dragonboat_tpu_torch.config import (
+        Config,
+        ExpertConfig,
+        MeshSpec,
+        NodeHostConfig,
+    )
+    from dragonboat_tpu_torch.nodehost import NodeHost
+
+    addrs = {r: f"{tag}-{r}" for r in rids}
+    hosts = {}
+    for r in rids:
+        ex = dict(lockstep.GEOMETRY, kernel_pipeline_depth=depth)
+        if mesh is not None:
+            ex.pop("kernel_capacity")
+            ex["mesh"] = MeshSpec(name=tag, **mesh)
+        hosts[r] = NodeHost(NodeHostConfig(
+            raft_address=addrs[r], rtt_millisecond=5,
+            node_host_dir=(dirs or {}).get(r, ""),
+            expert=ExpertConfig(**ex)), device=dev)
+        hosts[r].start_replica(addrs, False, _kv_sm, Config(
+            shard_id=1, replica_id=r, election_rtt=10, heartbeat_rtt=2,
+            snapshot_entries=snapshot_entries,
+            compaction_overhead=compaction_overhead,
+            device_resident=mesh is None, mesh_resident=mesh is not None))
+    return hosts
+
+
+def _ops_witness_host(addr, dev, compaction_overhead=5):
+    """A host-resident witness (replica ``lockstep.WITNESS``) that joins
+    shard 1."""
+    from dragonboat_tpu_torch import lockstep
+    from dragonboat_tpu_torch.config import Config, NodeHostConfig
+    from dragonboat_tpu_torch.nodehost import NodeHost
+
+    nh = NodeHost(NodeHostConfig(raft_address=addr, rtt_millisecond=5),
+                  device=dev)
+    nh.start_replica({}, True, _kv_sm, Config(
+        shard_id=1, replica_id=lockstep.WITNESS, election_rtt=10, heartbeat_rtt=2,
+        is_witness=True, compaction_overhead=compaction_overhead))
+    return nh
+
+
+def _ops_until(cond, what: str, deadline_s: float = 30.0) -> float:
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < deadline_s, what)
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def _ops_witness(torch, dev) -> dict:
+    """[ops_witness]: 2 device-resident voters and a host witness
+    (auto_run): 10 writes, the witness's log METADATA only; a voter
+    closed, 5 writes committed through the witness's acks, the shard
+    still on its engine; then a fresh pair whose leader lane's ring
+    compacts before the witness joins, which catches up through the
+    stripped file-less snapshot (its snapshot record a witness one), the
+    leader never evicted."""
+    from dragonboat_tpu_torch import lockstep
+
+    t0 = time.perf_counter()
+    tag = f"opw{time.monotonic_ns()}"
+    meter = _OpsMeter(torch)
+    engines, out = [], {}
+    hosts = _ops_hosts(tag, dev)
+    try:
+        try:
+            lockstep.majority_leader(hosts)
+            out["elect_s"] = time.perf_counter() - t0
+            hosts[lockstep.WITNESS] = _ops_witness_host(f"{tag}-w", dev)
+            lockstep.add_witness_sync(hosts, f"{tag}-w")
+            w0 = time.perf_counter()
+            lid = lockstep.writes(hosts, [f"k{i}=v{i}"
+                                          for i in range(OPS_WITNESS_WRITES)])
+            out["metadata_entries"] = lockstep.metadata_only(
+                hosts[lockstep.WITNESS], OPS_WITNESS_WRITES)
+            check(1 in hosts[lid].kernel_engine.by_shard, "witness cell: shard evicted")
+            down = next(r for r in (1, 2) if r != lid)
+            engines.append(hosts[down].kernel_engine)
+            hosts.pop(down).close()
+            lid = lockstep.writes(hosts, [f"solo{i}=v{i}"
+                                          for i in range(OPS_SOLO_WRITES)])
+            out["write_s"] = time.perf_counter() - w0
+            check(hosts[lid].stale_read(1, f"solo{OPS_SOLO_WRITES - 1}")
+                  == f"v{OPS_SOLO_WRITES - 1}",
+                  "witness cell: the writes with a voter down did not apply")
+            check(1 in hosts[lid].kernel_engine.by_shard,
+                  "witness cell: the leader's shard left its engine")
+            out["voter_down"] = down
+            out["writes"] = OPS_WITNESS_WRITES + OPS_SOLO_WRITES
+        finally:
+            engines += [nh.kernel_engine for nh in hosts.values() if nh.kernel_engine]
+            _nh_close(hosts)
+        # the witness added after the leader lane's ring compacted
+        s0 = time.perf_counter()
+        tag = f"ops{time.monotonic_ns()}"
+        hosts = _ops_hosts(tag, dev, snapshot_entries=8, compaction_overhead=2)
+        try:
+            lid = lockstep.writes(hosts, [f"p{i}=v{i}"
+                                          for i in range(OPS_STRIP_WRITES)])
+            eng = hosts[lid].kernel_engine
+            lane = eng.by_shard[1].lane
+
+            def compacted():
+                return int(eng.state.snap_index[lane]) > 0
+            if not compacted():
+                for i in range(20):
+                    lockstep.writes(hosts, [f"more{i}=x"])
+                    if compacted():
+                        break
+            check(compacted(), "witness cell: the leader lane's ring never compacted")
+            hosts[lockstep.WITNESS] = _ops_witness_host(f"{tag}-w", dev, 2)
+            lid = lockstep.add_witness_sync(hosts, f"{tag}-w")
+            wnode = hosts[lockstep.WITNESS].nodes[1]
+            target = hosts[lid].nodes[1].sm.get_last_applied()
+
+            def caught_up():
+                lockstep.writes(hosts, ["tick=t"])
+                return wnode.sm.get_last_applied() >= target
+            _ops_until(caught_up, "the witness never caught up past compaction")
+            wss = hosts[lockstep.WITNESS].logdb.get_snapshot(1, lockstep.WITNESS)
+            check(wss is not None and wss.witness,
+                  "witness cell: catch-up took no witness snapshot")
+            check(1 in hosts[lid].kernel_engine.by_shard,
+                  "witness cell: the leader was evicted serving a witness snapshot")
+            check(wnode.sm.sm.kv == {}, "a payload reached the witness's SM")
+            out.update(strip_ring_snap_index=int(eng.state.snap_index[lane]),
+                       strip_witness_snapshot_index=wss.index,
+                       strip_seconds=time.perf_counter() - s0)
+        finally:
+            engines += [nh.kernel_engine for nh in hosts.values() if nh.kernel_engine]
+            _nh_close(hosts)
+    finally:
+        meter.stop()
+    kp = engines[0].kp
+    return {**out, **meter.checked("ops_witness", kp), **_step_pctiles(engines),
+            "seconds": time.perf_counter() - t0, "_meter": meter}
+
+
+def _ops_depth1(torch, dev) -> dict:
+    """[ops_depth1]: three device-resident voters at pipeline depth 1 on
+    tan directories, snapshot_entries 12: OPS_D1_WRITES writes, the log
+    compacted, the last read back through the leader; every host closed
+    and reopened on its directory, every write read back on every
+    replica; the pending step context drained at idle; then the partition
+    monkey, its history linearizable."""
+    import tempfile
+
+    from dragonboat_tpu_torch import lockstep
+
+    t0 = time.perf_counter()
+    meter = _OpsMeter(torch)
+    engines, out = [], {}
+    want = {f"s{i}": f"v{i}" for i in range(OPS_D1_WRITES)}
+    try:
+        with tempfile.TemporaryDirectory(prefix="opsd1") as root:
+            dirs = {r: f"{root}/nh{r}" for r in (1, 2, 3)}
+            tag = f"opd{time.monotonic_ns()}"
+            hosts = _ops_hosts(tag, dev, (1, 2, 3), depth=1, dirs=dirs,
+                               snapshot_entries=12)
+            try:
+                lockstep.majority_leader(hosts)
+                out["elect_s"] = time.perf_counter() - t0
+                w0 = time.perf_counter()
+                lid = lockstep.writes(hosts, [f"{k}={v}" for k, v in want.items()])
+                out["write_s"] = time.perf_counter() - w0
+                node = hosts[lid].nodes[1]
+                _ops_until(lambda: node.compacted_to > 0, "depth 1: no compaction")
+                out["compacted_to"] = node.compacted_to
+                last = f"s{OPS_D1_WRITES - 1}"
+                check(hosts[lid].sync_read(1, last, timeout_s=10) == want[last],
+                      "depth 1: the last write did not read back")
+                out["overlapped"] = sum(nh.events.metrics.snapshot().get(
+                    "engine.pipeline.overlapped", 0) for nh in hosts.values())
+                check(out["overlapped"] > 0, "depth 1: no step overlapped")
+            finally:
+                engines += [nh.kernel_engine for nh in hosts.values()]
+                _nh_close(hosts)
+            r0 = time.perf_counter()
+            hosts = _ops_hosts(tag, dev, (1, 2, 3), depth=1, dirs=dirs,
+                               snapshot_entries=12)
+            try:
+                lockstep.majority_leader(hosts)
+                out["restart_elect_s"] = time.perf_counter() - r0
+                _ops_until(lambda: all(nh.stale_read(1, k) == v
+                                       for nh in hosts.values()
+                                       for k, v in want.items()),
+                           "depth 1: a write was not read back after restart")
+                out["read_back_replicas"] = len(hosts)
+                out["restart_s"] = time.perf_counter() - r0
+                # each engine seen with no step in flight: with a tick
+                # round every rtt, the three are seldom idle at one instant
+                idle = set()
+
+                def drained():
+                    idle.update(r for r, nh in hosts.items()
+                                if nh.kernel_engine._pending_ctx is None)
+                    return len(idle) == len(hosts)
+                _ops_until(drained, "depth 1: a pending step context never drained")
+                out.update(lockstep.monkey(hosts, OPS_MONKEY_S, OPS_MONKEY_OPS,
+                                           op_timeout_s=1.0))
+            finally:
+                engines += [nh.kernel_engine for nh in hosts.values()]
+                _nh_close(hosts)
+    finally:
+        meter.stop()
+    return {"writes": OPS_D1_WRITES, **out,
+            **meter.checked("ops_depth1", engines[0].kp), **_step_pctiles(engines),
+            "seconds": time.perf_counter() - t0, "_meter": meter}
+
+
+def _ops_mesh(torch, dev) -> dict:
+    """[ops_mesh]: three mesh-resident voters on tan directories sharing
+    a (g=2, r=4) MeshSpec (witness id 4 inside mesh addressing) on the
+    one-device mesh layout: writes, every host restarted from its
+    directory and every write read back; a witness added, the group
+    escalated off the mesh to the host engines, writes through them; a
+    snapshot on every voter, then a restart that mesh admission refuses
+    from the durable membership, writes again."""
+    import tempfile
+
+    from dragonboat_tpu_torch import lockstep
+
+    t0 = time.perf_counter()
+    meter = _OpsMeter(torch, mesh=True)
+    out, engines, kp = {}, [], None
+    want = {f"m{i}": f"v{i}" for i in range(6)}
+    try:
+        with tempfile.TemporaryDirectory(prefix="opsm") as root:
+            dirs = {r: f"{root}/nh{r}" for r in (1, 2, 3)}
+            tag = f"opm{time.monotonic_ns()}"
+            def reopen():
+                return _ops_hosts(tag, dev, (1, 2, 3), dirs=dirs,
+                                  mesh=lockstep.MESH)
+
+            def off_mesh(hs):
+                eng = hs[1].mesh_engine
+                return all(eng is None or (1, r) not in eng.by_shard
+                           for r in (1, 2, 3))
+
+            hosts = reopen()
+            try:
+                check(all(nh.nodes[1].peer is None for nh in hosts.values()),
+                      "mesh ops: a replica is not mesh-resident")
+                eng = hosts[1].mesh_engine
+                kp = eng.kp
+                out["layout"] = _layout(eng.cluster.devices)
+                lockstep.majority_leader(hosts)
+                out["elect_s"] = time.perf_counter() - t0
+                lockstep.writes(hosts, [f"{k}={v}" for k, v in want.items()])
+            finally:
+                engines.append(hosts[1].mesh_engine)
+                _nh_close(hosts)
+            r0 = time.perf_counter()
+            hosts = reopen()
+            try:
+                check(all((1, r) in hosts[1].mesh_engine.by_shard for r in (1, 2, 3)),
+                      "mesh ops: the rows were not re-injected on restart")
+                lockstep.majority_leader(hosts)
+                _ops_until(lambda: all(nh.stale_read(1, k) == v
+                                       for nh in hosts.values()
+                                       for k, v in want.items()),
+                           "mesh ops: a write was not read back after restart")
+                out["restart_s"] = time.perf_counter() - r0
+                w0 = time.perf_counter()
+                hosts[lockstep.WITNESS] = _ops_witness_host(f"{tag}-w", dev)
+                lockstep.add_witness_sync(hosts, f"{tag}-w")
+                out["escalate_s"] = _ops_until(lambda: off_mesh(hosts),
+                                               "mesh ops: the witness group stayed on the mesh")
+                check(all(hosts[r].nodes[1].peer is not None for r in (1, 2, 3)),
+                      "mesh ops: the escalated group is not host-resident")
+                lockstep.writes(hosts, ["post=wit"])
+                out["witness_s"] = time.perf_counter() - w0
+                for r in (1, 2, 3):
+                    hosts[r].sync_request_snapshot(1, timeout_s=10)
+            finally:
+                engines.append(hosts[1].mesh_engine)
+                _nh_close(hosts)
+            a0 = time.perf_counter()
+            hosts = reopen()
+            try:
+                check(off_mesh(hosts)
+                      and all(hosts[r].nodes[1].peer is not None for r in (1, 2, 3)),
+                      "mesh ops: admission took the witness group onto the mesh")
+                lid = lockstep.writes(hosts, ["again=ok"])
+                check(hosts[lid].stale_read(1, "post") == "wit",
+                      "mesh ops: the write through the host engines was lost")
+                out["admission_s"] = time.perf_counter() - a0
+            finally:
+                _nh_close(hosts)
+    finally:
+        meter.stop()
+    engines = [e for e in engines if e is not None and e._step_timer.samples]
+    return {"mesh": "(g=2, r=4)", "writes": len(want) + 2, **out,
+            **meter.checked("ops_mesh", kp), **_step_pctiles(engines),
+            "seconds": time.perf_counter() - t0, "_meter": meter}
+
+
+def _ops_examples() -> dict:
+    """[ops_examples]: the three user examples as subprocesses on the
+    card, ``multigroup_device`` at its default 32 shards."""
+    import os
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = {}
+
+    def run(name, *args, cwd):
+        t = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", f"dragonboat_tpu_torch.examples.{name}", *args],
+            capture_output=True, text=True, env=env, cwd=cwd, timeout=300)
+        check(r.returncode == 0,
+              f"example {name} exited {r.returncode}: {r.stderr[-1500:]}")
+        out[f"{name}_s"] = out.get(f"{name}_s", 0.0) + time.perf_counter() - t
+        return r.stdout
+
+    with tempfile.TemporaryDirectory(prefix="opsx") as tmp:
+        got = run("helloworld", cwd=tmp)
+        check("dublin (linearizable read via follower host): rain" in got,
+              f"helloworld printed {got!r}")
+        got = run("ondisk", f"{tmp}/data", cwd=tmp)
+        check("wrote boot" in got, f"ondisk printed {got!r}")
+        got = run("ondisk", f"{tmp}/data", cwd=tmp)
+        check("recovered from disk: boot =" in got, f"ondisk (again) printed {got!r}")
+        got = run("multigroup_device", cwd=tmp)
+        n = OPS_EXAMPLE_SHARDS
+        check(f"{n}/{n} shards elected" in got and f"wrote to {n}/{n} shards" in got,
+              f"multigroup_device printed {got!r}")
+    out["multigroup_shards"] = OPS_EXAMPLE_SHARDS
+    return out
+
+
+def phase_ops(torch, dev, smi: str) -> list[dict]:
+    """Phase 13: the membership and log-lifecycle operations on
+    device- and mesh-resident shards, and the user examples.  Returns the
+    kernels line's rows (K1 on the KernelEngine cells' inputs, K1 and K2
+    on the mesh cell's)."""
+    try:
+        return _phase_ops(torch, dev, smi)
+    except AssertionError as e:   # lockstep's checks
+        raise SmokeFailure(f"ops: {e}") from e
+
+
+def _phase_ops(torch, dev, smi: str) -> list[dict]:
+    t0 = time.perf_counter()
+    for mesh in (False, True):
+        st = _ops_parity(torch, dev, mesh)
+        say("ops_parity_mesh" if mesh else "ops_parity", **st, card=json.dumps(smi))
+    wit = _ops_witness(torch, dev)
+    wit_meter = wit.pop("_meter")
+    say("ops_witness", **wit, card=json.dumps(smi))
+    d1 = _ops_depth1(torch, dev)
+    d1_meter = d1.pop("_meter")
+    say("ops_depth1", **d1, card=json.dumps(smi))
+    ms = _ops_mesh(torch, dev)
+    ms_meter = ms.pop("_meter")
+    say("ops_mesh", **ms, card=json.dumps(smi))
+    say("ops_examples", **_ops_examples(), card=json.dumps(smi))
+    # the kernels line's rows: K1 on the witness cell's step inputs with
+    # the KernelEngine cells' launches, K1 and K2 on the mesh cell's
+    launches = {k: wit_meter.launches[k] + d1_meter.launches[k]
+                for k in wit_meter.launches}
+    rows = [_k1_row(torch, wit_meter.step_tap["inputs"], launches, "ops"),
+            *_mesh_rows(torch, ms_meter.step_tap["inputs"],
+                        ms_meter.route_tap["inputs"], ms_meter.launches,
+                        "ops_mesh")]
+    for r in rows:
+        say("ops_kernel", **{k: v for k, v in r.items() if k != "timing"},
+            timing=json.dumps(r["timing"]))
+    say("ops_total", seconds=time.perf_counter() - t0)
+    return rows
+
+
 def compare_workers(torch, dev, rounds: int) -> int:
     """``python3 chip_smoke.py --compare-workers [ROUNDS]``: the NodeHost
     cell under the reference's EngineConfig and under one step worker, in
@@ -4477,6 +5074,9 @@ def main() -> int:
         phase_scale(torch, dev, device["nvidia_smi"],
                     int((sys.argv[2:] or [SCALE_GROUPS])[0]))
         return 0
+    if sys.argv[1:2] == ["--ops"]:
+        phase_ops(torch, dev, device["nvidia_smi"])
+        return 0
     rows = phase_kernels(torch, dev)
     phase_parity(torch, dev)
     launches = phase_slice(torch, dev)
@@ -4488,6 +5088,7 @@ def main() -> int:
     scale_rows = phase_scale(torch, dev, device["nvidia_smi"])
     split_rows = phase_mesh_split(torch, dev, device["nvidia_smi"],
                                   guard=False)
+    ops_rows = phase_ops(torch, dev, device["nvidia_smi"])
     say("total", seconds=time.perf_counter() - t0)
     # one row per kernel: the numbers of the entry the main path launches
     keys = ("route", "source", "replaces", "max_abs_err", "ms", "plain_ms",
@@ -4499,7 +5100,7 @@ def main() -> int:
         {"name": r["kernel"], "entry": r["name"], "path": r["path"],
          "launches": r["launches"], **{k: r[k] for k in keys}}
         for r in mesh_rows + verify_rows + gossip_rows + scale_rows
-        + split_rows]}))
+        + split_rows + ops_rows]}))
     print(device["nvidia_smi"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))

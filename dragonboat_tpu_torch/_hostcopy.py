@@ -15,8 +15,9 @@ hand and are not listed here.  The hand ports that follow one reference
 file each (``HAND_PORTS``: the chaos runner, the model checker from
 ``scripts/model_check.py``, the capacity rungs from
 ``scripts/scale_100k.py``, the analysis passes, whose scopes name the
-port's files, and ``logdb/kv``, which refuses a corrupt SST the reference
-reads past its end) are each held to a recorded diff against the
+port's files, ``logdb/kv``, which refuses a corrupt SST the reference
+reads past its end, and the three user examples, which take ``--device``
+and import their state machine from the port's package) are each held to a recorded diff against the
 rewritten reference text under ``tests/hand_ports/``, so an edit on either
 side shows as drift until the diff is recorded again.
 
@@ -71,6 +72,9 @@ HAND_PORTS = {
     "analysis/engine_unity.py": "dragonboat_tpu/analysis/engine_unity.py",
     "analysis/contracts.py": "dragonboat_tpu/analysis/contracts.py",
     "analysis/transfer.py": "dragonboat_tpu/analysis/transfer.py",
+    "examples/helloworld.py": "examples/helloworld.py",
+    "examples/ondisk.py": "examples/ondisk.py",
+    "examples/multigroup_device.py": "examples/multigroup_device.py",
 }
 HAND_DIFFS = ROOT / "tests" / "hand_ports"
 

@@ -46,6 +46,10 @@ def test_port_imports_no_jax_and_no_reference_package():
         import dragonboat_tpu_torch.gossip  # noqa: F401
         import dragonboat_tpu_torch.history  # noqa: F401
         import dragonboat_tpu_torch.transport.tcp  # noqa: F401
+        # the operations' lockstep drive and the user examples
+        import dragonboat_tpu_torch.lockstep  # noqa: F401
+        from dragonboat_tpu_torch.examples import (  # noqa: F401
+            helloworld, multigroup_device, ondisk)
         from dragonboat_tpu_torch.analysis import (  # noqa: F401
             common, concurrency, contracts, determinism, engine_unity,
             safety, transfer)
