@@ -180,7 +180,19 @@ Phases, each printing one line (any failure exits non-zero):
    ``[gossip_tcp]``; then the lint driver's passes with their dynamic
    legs on the card, no cached verdict (RS005's model checker launching
    K1, the transfer leg under the CUDA sync guard, KC007 on card
-   tensors): each pass's findings (all 0) and wall seconds ``[lint]``;
+   tensors): each pass's findings (all 0) and wall seconds, the nine
+   passes of ``python -m dragonboat_tpu_torch.analysis``, the static
+   walks (tracer-safety, the
+   contracts interpreter, partition's PS001/PS003/PS006) and the op
+   budget among them ``[lint]``; the op budget's two bodies
+   (``bench_loop._run_body``; ``ici.serve_step`` on the (1, 2) split
+   mesh, both positions on the card) captured as CUDA graphs at the
+   budget's geometry and at OB_CARD_GROUPS groups, the device launches
+   per replay under torch.profiler beside the CPU op counts and their
+   ratio, the launches at the two group counts equal (the kernel names
+   that differ printed), the CPU sync class 0, K1/K2/K3 launched per
+   replay, by the profiler's names of their ``__global__`` functions,
+   exactly as the budget counts them ``[op_budget]``;
    K1's entry timed on the cell's inputs ``[gossip_tcp_kernel]``;
 11. scale: ``scripts/scale_100k.py``'s two rungs on the port
    (``dragonboat_tpu_torch.scale_100k``) at their full width, never
@@ -283,7 +295,8 @@ every fast seed, the depth-1 schedule, the hotspot and the wide
 schedule; ``--gossip [SHARDS]`` only phases 1, 2
 and 10, its cell at SHARDS shards (GT_SHARDS unless given); ``--scale
 [GROUPS]`` only phases 1, 2 and 11, at GROUPS (SCALE_GROUPS unless
-given); ``--ops`` only phases 1, 2 and 13.
+given); ``--ops`` only phases 1, 2 and 13; ``--lint`` only phases 1, 2
+and phase 10's ``[lint]`` and ``[op_budget]``.
 """
 
 from __future__ import annotations
@@ -389,6 +402,13 @@ WIDE_SHARDS, WIDE_WRITES, WIDE_SEED, WIDE_STEP_S, WIDE_LIMIT_S = 1024, 2, 7, 1.0
 # and 1,252 ms, the output pass most of it: the hub flushes every
 # message as its own TCP frame from the engine's thread)
 GT_SHARDS = 512
+# phase 10's [op_budget]: the op budget's two bodies captured as CUDA
+# graphs at the budget's geometry and at OB_CARD_GROUPS groups (x 3 for
+# the step body; on the (1, 2) split mesh for the serve body), each
+# called once (the call captures), then replayed OB_REPLAYS times, each
+# traced in a profiler cycle of its own after a warm-up replay, with
+# OB_PAD_S seconds idle on each side of the traced window
+OB_CARD_GROUPS, OB_REPLAYS, OB_PAD_S = 8192, 3, 0.02
 # phase 11, the 100k-group capacity rungs of scripts/scale_100k.py on the
 # port (dragonboat_tpu_torch.scale_100k) at their full width, never cut:
 # phase A at SCALE_GROUPS x 3 with its SCALE_STEPS of 5 steps a timed call,
@@ -4229,6 +4249,176 @@ def _lint(torch, dev) -> dict:
     return out
 
 
+def _hand_kernel_functions() -> dict[str, tuple[str, ...]]:
+    """Each hand kernel's launch-count name (its source's stem) -> the
+    ``__global__`` functions of its source, as the profiler names them."""
+    import re
+
+    from dragonboat_tpu_torch import kernels
+
+    return {src.stem: tuple(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        src.read_text())) for src in sorted(kernels.SRC_DIR.glob("*.cu"))}
+
+
+def _ob_replays(torch, step) -> dict:
+    """``step()`` (one call of a compiled body, its graph captured) once,
+    then OB_REPLAYS times, each replay traced in a torch.profiler cycle of
+    its own after a warm-up replay, with OB_PAD_S of idle time on each
+    side of its window: the device launches per call (kernels, copies and
+    fills apart), the sizes of the graph launches (the launches that share
+    a correlation id), each hand kernel's launches per call by the
+    profiler's names of its ``__global__`` functions, each kernel name's
+    launches per call, and each replay's total.  A replay's trace can come
+    out short (the profiler drops device records whose converted
+    timestamps fall outside its window) but never long, so the counts are
+    those of the replay with the most launches."""
+    import collections
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    step()
+    torch.cuda.synchronize()
+    cycles: list = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=OB_REPLAYS),
+                 on_trace_ready=lambda p: cycles.append(
+                     p.profiler.kineto_results.events())) as prof:
+        for _ in range(2 * OB_REPLAYS):
+            step()
+            torch.cuda.synchronize()
+            time.sleep(OB_PAD_S)
+            prof.step()
+            time.sleep(OB_PAD_S)
+    check(len(cycles) == OB_REPLAYS,
+          f"op_budget: {len(cycles)} profiler cycles, not {OB_REPLAYS}")
+    replays = []
+    for events in cycles:
+        on_card = [e for e in events if e.device_type() == DeviceType.CUDA]
+        replays.append((collections.Counter(e.name() for e in on_card),
+                        collections.Counter(e.correlation_id()
+                                            for e in on_card)))
+    # the replay with the most launches (a copy's or a kernel's name can
+    # differ from one replay to the next, so names are not maxed apart)
+    names, nodes = max(replays, key=lambda r: sum(r[0].values()))
+    copies = sum(v for n, v in names.items()
+                 if n.lower().startswith(("memcpy", "memset")))
+    launches = sum(names.values())
+    hand = {k: sum(n for name, n in names.items()
+                   if any(re.search(rf"\b{f}\b", name) for f in fns))
+            for k, fns in _hand_kernel_functions().items()}
+    return {"launches": launches,
+            "copies": copies,
+            "kernels": launches - copies,
+            "replays": [sum(r[0].values()) for r in replays],
+            # launches sharing a correlation id (a graph launch's nodes,
+            # the eager copies around it one each): size -> how many
+            "graph_nodes": dict(sorted(collections.Counter(
+                n for n in nodes.values() if n > 1).items())),
+            "hand": hand,
+            "names": dict(names)}
+
+
+def _op_budget_card(torch, dev) -> dict:
+    """[op_budget]: the op budget's two bodies (``bench_loop._run_body``;
+    ``ici.serve_step`` on the (1, 2) split mesh, both positions on the
+    card) captured as CUDA graphs at the budget's geometry and at
+    OB_CARD_GROUPS groups: the device launches per replay beside the CPU
+    counts (measured fresh, at the budget's geometry) and their ratio.
+    Checks: the launches per replay at the two group counts are equal (the
+    kernel names whose counts differ are printed); the CPU sync class is
+    0; K1, K2 and K3 launch per replay, by the profiler's names of their
+    ``__global__`` functions, exactly as the budget counts them."""
+    import os
+
+    from dragonboat_tpu_torch import bench_loop as bl
+    from dragonboat_tpu_torch.analysis import __main__ as lint
+    from dragonboat_tpu_torch.analysis import op_budget as ob
+    from dragonboat_tpu_torch.parallel import ici
+
+    t0 = time.perf_counter()
+    spec = ob.load_budget(os.path.join(lint.ROOT, ob.BUDGET_FILE))
+    config = {**ob.DEFAULT_CONFIG, **spec.get("config", {})}
+    cpu = ob.measure_all(config)
+    out: dict = {"cpu_s": time.perf_counter() - t0}
+    for entry in ob.ENTRIES:
+        got = {}
+        for groups in (config[entry]["groups"], OB_CARD_GROUPS):
+            cfg = dict(config[entry], groups=groups)
+            if entry == "run_steps":
+                kp, R, state, box = ob.run_steps_inputs(cfg, device=dev)
+                carry = [state, box]
+
+                def step():
+                    carry[:] = bl._run(kp, R, True, True, *carry)
+            else:
+                args = ob.serve_step_inputs(cfg, devices=(dev, dev))
+                carry = list(args[2:4])
+
+                def step():
+                    st, bx, _ = ici.serve_step(args[0], args[1], *carry,
+                                               *args[4:])
+                    carry[:] = [st, bx]
+            got[groups] = _ob_replays(torch, step)
+            del carry
+            torch.cuda.synchronize()
+        small, big = (got[g] for g in sorted(got))
+        c = cpu[entry]
+        diff = {n: [small["names"].get(n, 0), big["names"].get(n, 0)]
+                for n in set(small["names"]) | set(big["names"])
+                if small["names"].get(n, 0) != big["names"].get(n, 0)}
+        out.update({
+            f"{entry}_cpu_total": c["total"],
+            f"{entry}_cpu_gather": c["gather"],
+            f"{entry}_cpu_scatter": c["scatter"],
+            f"{entry}_cpu_sync": c["sync"],
+            f"{entry}_cpu_kernels": json.dumps(c["kernels"]),
+            f"{entry}_budget_total": spec["budget"][entry]["total"],
+            f"{entry}_groups": json.dumps(sorted(got)),
+            f"{entry}_launches": json.dumps([small["launches"],
+                                             big["launches"]]),
+            f"{entry}_device_kernels": json.dumps([small["kernels"],
+                                                   big["kernels"]]),
+            f"{entry}_device_copies": json.dumps([small["copies"],
+                                                  big["copies"]]),
+            f"{entry}_replay_launches": json.dumps([small["replays"],
+                                                    big["replays"]]),
+            f"{entry}_graph_nodes": json.dumps([small["graph_nodes"],
+                                                big["graph_nodes"]]),
+            f"{entry}_launches_per_cpu_op": json.dumps(
+                [small["launches"] / c["total"], big["launches"] / c["total"]]),
+            f"{entry}_hand_launches": json.dumps([small["hand"], big["hand"]]),
+            f"{entry}_launch_diff": json.dumps(diff, sort_keys=True),
+        })
+        check(c["sync"] == 0, f"op_budget: {entry} has {c['sync']} sync ops")
+        check(small["launches"] == big["launches"],
+              f"op_budget: {entry} launches {small['launches']} a replay at "
+              f"{min(got)} groups, {big['launches']} at {max(got)}; "
+              f"by name: {json.dumps(diff, sort_keys=True)}")
+        for per in (small, big):
+            for name in ("quorum_match", "gather_lanes", "kv_apply"):
+                check(per["hand"].get(name, 0) == c["kernels"].get(name, 0),
+                      f"op_budget: {entry} launched {name} "
+                      f"{per['hand'].get(name, 0)} times a replay on the "
+                      f"card, the budget counts "
+                      f"{c['kernels'].get(name, 0)}")
+    from dragonboat_tpu_torch import graphs
+
+    graphs.clear()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_lint(torch, dev, smi: str) -> None:
+    """``--lint``: phase 10's [lint] and [op_budget] alone."""
+    say("lint", **_lint(torch, dev), card=json.dumps(smi))
+    say("op_budget", **_op_budget_card(torch, dev), card=json.dumps(smi))
+
+
 def phase_gossip_tcp(torch, dev, smi: str,
                      shards: int = GT_SHARDS) -> list[dict]:
     """Phase 10: the NodeHost cell addressed by NodeHostID over the TCP
@@ -4238,7 +4428,7 @@ def phase_gossip_tcp(torch, dev, smi: str,
     cell = _gossip_tcp(torch, dev, shards)
     taps, launches = cell.pop("_taps"), cell.pop("_launches")
     say("gossip_tcp", **cell, phase7_shards=NH_SHARDS, card=json.dumps(smi))
-    say("lint", **_lint(torch, dev), card=json.dumps(smi))
+    phase_lint(torch, dev, smi)
     row = _k1_row(torch, taps, launches, "gossip_tcp")
     say("gossip_tcp_kernel", **{k: v for k, v in row.items() if k != "timing"},
         timing=json.dumps(row["timing"]))
@@ -5076,6 +5266,9 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--ops"]:
         phase_ops(torch, dev, device["nvidia_smi"])
+        return 0
+    if sys.argv[1:2] == ["--lint"]:
+        phase_lint(torch, dev, device["nvidia_smi"])
         return 0
     rows = phase_kernels(torch, dev)
     phase_parity(torch, dev)

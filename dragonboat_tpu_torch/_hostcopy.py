@@ -72,6 +72,8 @@ HAND_PORTS = {
     "analysis/engine_unity.py": "dragonboat_tpu/analysis/engine_unity.py",
     "analysis/contracts.py": "dragonboat_tpu/analysis/contracts.py",
     "analysis/transfer.py": "dragonboat_tpu/analysis/transfer.py",
+    "analysis/tracer_safety.py": "dragonboat_tpu/analysis/tracer_safety.py",
+    "analysis/partition.py": "dragonboat_tpu/analysis/partition.py",
     "examples/helloworld.py": "examples/helloworld.py",
     "examples/ondisk.py": "examples/ondisk.py",
     "examples/multigroup_device.py": "examples/multigroup_device.py",

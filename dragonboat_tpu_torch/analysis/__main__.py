@@ -4,19 +4,25 @@
     python -m dragonboat_tpu_torch.analysis --dynamic        # + device legs
     python -m dragonboat_tpu_torch.analysis --dynamic --device cpu
     python -m dragonboat_tpu_torch.analysis --pass safety
+    python -m dragonboat_tpu_torch.analysis --reseed-op-budget
 
-The counterpart of the reference's ``scripts/lint.py`` for the passes that
-have a torch form (``analysis/__init__.py`` lists the ones that do not):
+The counterpart of the reference's ``scripts/lint.py``: its nine passes,
+each with its static leg (``analysis/__init__.py`` lists the few rules
+that have no torch form):
 
   concurrency   ``# guarded-by:`` discipline and the CC003 lock-order graph
                 over the thread-shared modules, the port's compiled
                 entries and engine layer included
   determinism   wall clock / unseeded RNG / set-iteration order in the
                 replay paths
-  contracts     CONTRACTS tables parse (KC007) and the DONATION table
-                matches the compiled entries' donated positions (KC008);
-                ``--dynamic`` adds KC007's declared-vs-actual diff of the
-                tensors one real step and one reduction pass build
+  contracts     the abstract interpreter over core/kernel.py (KC001-KC006:
+                named-axis broadcasts, silent dtype conversions, bool/i32
+                comparisons, unmasked ring indices, out-of-domain and
+                mis-shaped stores), CONTRACTS tables parse (KC007) and the
+                DONATION table matches the compiled entries' donated
+                positions (KC008); ``--dynamic`` adds KC007's
+                declared-vs-actual diff of the tensors one real step and
+                one reduction pass build
   engine-unity  one step loop, one dispatch abstraction (EU001-EU006)
   safety        the INVARIANTS declarations and the kernel's store
                 obligations (RS001-RS004, RS006); ``--dynamic`` adds the
@@ -24,20 +30,29 @@ have a torch form (``analysis/__init__.py`` lists the ones that do not):
   transfer      the declared device<->host seam (TB001-TB006);
                 ``--dynamic`` adds the guarded step loop at four
                 geometries, diffed against the ledger
-  partition     ``--dynamic`` only: one serve step of a split mesh, every
-                position's leaves on its own device with its rows (PS002)
+  partition     the static walk: cross-G reductions (PS001), replicated
+                values mixed with split ones (PS003), implicit syncs in
+                hot host paths (PS006); ``--dynamic`` adds one serve step
+                of a split mesh, every position's leaves on its own
+                device with its rows (PS002)
+  tracer-safety host control flow, host reads, syncs and frozen host
+                effects in the scope a CUDA graph captures (TS001-TS004)
+  op-budget     the aten op counts of one step body and one split serve
+                step on the CPU against ``analysis/op_budget.json``
+                (OB001; ``--reseed-op-budget`` rewrites the file)
 
 ``--dynamic`` runs on ``--device`` (default: the CUDA card; with no card
 it raises — pass ``--device cpu``); the dynamic legs' verdicts are cached
-by source hash, torch version and device type.  Waivers live in
+by source hash, torch version and device type, and the op budget's
+counts by source hash and torch version (it always measures on the
+CPU).  Waivers live in
 ``dragonboat_tpu_torch/analysis/waivers.toml`` (the reference's format);
 waived findings are printed with their reasons, and on a full run (no
 ``--pass``) a waiver that matches no file (SW001) or suppressed nothing
 (SW002) is itself a finding.  The exit status is 1 when any unwaived
 finding remains, 2 on an unreadable waiver file.  The reference driver's
-fork pool, ``--changed-only``, JSON and SARIF output and budget
-reseeding are not carried: the passes here take about a second together
-without ``--dynamic``.
+fork pool, ``--changed-only``, JSON and SARIF output are not carried:
+the passes here take a few seconds together without ``--dynamic``.
 """
 
 from __future__ import annotations
@@ -54,8 +69,10 @@ from dragonboat_tpu_torch.analysis import (
     contracts,
     determinism,
     engine_unity,
+    op_budget,
     partition,
     safety,
+    tracer_safety,
     transfer,
 )
 
@@ -78,6 +95,8 @@ def _passes(dynamic: bool, device, use_cache: bool) -> dict:
             root, dynamic=dynamic, device=device, use_cache=use_cache),
         "partition": lambda root: partition.run(
             root, dynamic=dynamic, device=device),
+        "tracer-safety": lambda root: tracer_safety.run(root),
+        "op-budget": lambda root: op_budget.run(root, use_cache=use_cache),
     }
 
 
@@ -143,7 +162,18 @@ def main(argv: list[str] | None = None, root: str = ROOT) -> int:
     ap.add_argument("--device", default=None,
                     help="device of the dynamic legs (default: the CUDA "
                          "card)")
+    ap.add_argument("--reseed-op-budget", action="store_true",
+                    help="measure the op counts on the CPU, rewrite "
+                         "analysis/op_budget.json and exit")
     args = ap.parse_args(argv)
+
+    if args.reseed_op_budget:
+        spec = op_budget.reseed(root)
+        for entry, budget in spec["budget"].items():
+            print(f"{entry}: {budget}")
+        print(f"wrote {op_budget.BUDGET_FILE}: review its diff and "
+              "justify the new counts in PERF.md")
+        return 0
 
     try:
         waivers = common.load_waivers(os.path.join(root, WAIVERS_FILE))

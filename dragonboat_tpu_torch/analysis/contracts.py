@@ -1,49 +1,82 @@
-"""Kernel contract analyzer: declared vs actual shape and dtype, donation.
+"""Kernel contract analyzer: shape/dtype/domain/ring-mask checking.
 
-The port's form of the reference's pass.  The batched Raft kernel's whole
-correctness story is that per-shard state is fixed-width i32/bool lanes
-advanced in lockstep.  This pass holds the field comments of
-``core/kstate.py`` (the ``CONTRACTS`` literals there, in
-``core/kernel.py``, ``core/health.py`` and ``core/invariants.py``; grammar
-documented at the kstate declaration) to the tensors the port builds:
+The port's form of the reference's pass.  The batched Raft kernel's
+whole correctness story is that per-shard state is fixed-width i32/bool
+lanes advanced in lockstep — and PyTorch will happily run a silent int64
+promotion, a trailing ``[K]``/``[E]`` broadcast, or an unmasked ring
+index, corrupting every shard at once.  This pass promotes the field
+comments of ``core/kstate.py`` into machine-checked contracts (the
+``CONTRACTS`` literals there, in ``core/kernel.py``, ``core/health.py``
+and ``core/invariants.py``; grammar documented at the kstate
+declaration) and verifies them three ways:
 
-- KC007  a ``CONTRACTS`` table that is not a pure literal or a field
-         contract that does not parse; and, at runtime, every declared
-         field against the tensor the port actually builds
-         (``init_state`` / ``empty_inbox`` / ``empty_input``, the
-         ``ShardState`` and ``StepOutput`` after one real ``kernel.step``,
-         and the health and invariant reductions' reports and digests
-         after one pass): a missing or undeclared field, a shape that
-         differs from the declared axes, a dtype that differs from the
-         declared one (an int64 where i32 is declared is a finding: the
-         port has no x64 switch to blame), on the device the caller names
-- KC008  the ``DONATION`` declaration of the port's ``core/kstate.py``
-         against the ``donate_argnums`` of the module-level
-         ``graphs.compiled(...)`` assignments in ``DONATION_MODULES``,
-         both directions
+**Statically** — an abstract interpreter over the AST of
+``core/kernel.py`` (reachability reuses the tracer-safety walk: every
+function reachable from a compiled entry is analyzed).  Each value
+carries an abstract ``(axes, dtype)`` where axes are SYMBOLIC names
+(G/P/CAP/K/E/B/RI) resolved from ``kp.<attr>`` uses, ``.shape`` reads
+and ``torch.arange`` / ``_arange`` extents — essential because the
+default geometry has K = E = B = RI = 8, so a cross-axis mixup is
+shape-correct and invisible to any runtime diff.  The port writes the
+shard axis G out: a parameter bound by annotation or by the
+conventional names (``s``, ``box``, ``inp``, ``out``; ``m``, one inbox
+slot, is an ``Inbox`` with its K axis taken out) keeps its declared
+``[G, ...]`` axes, and the kernel-local structs whose contracts are per
+shard (``PER_SHARD_CLASSES``) gain a leading G.  ``sel`` / ``mrep`` /
+``_lift`` align their operands on the LEADING (shard) axis — the
+licensed alignment; ``[:, None]`` is the explicit one; everywhere else
+torch aligns trailing axes, and two different named axes meeting there
+is KC001.  ``torch.where`` / ``sel`` join branches in the lattice;
+named-axis conflicts, dtype drift and un-ring-masked dynamic indices are
+findings:
 
-What has no torch form, and is left out: the reference's abstract
-interpreter over ``core/kernel.py`` (KC001 named-axis broadcasts, KC002
-silent dtype conversions, KC003 bool/i32 comparisons, KC004 unmasked ring
-indices, KC005 out-of-domain constant stores, KC006 store shapes) reads
-``jnp`` idioms in every function reachable from a ``jit``/``vmap``/``scan``
-seed through the ``tracer_safety`` walk, and the port's kernel has neither
-JAX tracers nor those seeds; the runtime leg's ``jax.eval_shape`` becomes a
-real step on small tensors.
+- KC001  implicit broadcast aligning two DIFFERENT named axes
+- KC002  silent dtype conversion, in torch spelling: an int32 or bool
+         ``sum`` / ``cumsum`` / ``prod`` with no ``dtype=`` (int64
+         result), ``torch.arange`` with no dtype (int64) mixed with i32,
+         ``/`` on integer tensors, a Python float with an int tensor,
+         arithmetic on ``torch.uint32``, arithmetic on bool (but
+         ``bool * int``, the masking idiom), f32/i32 and i64/i32 mixes
+- KC003  comparison mixing bool and i32 operands
+- KC004  dynamic index into a ring-tagged array (``_get1`` / ``_set1`` /
+         ``_get_row`` / ``_clear_row`` / ``torch.gather`` / advanced
+         indexing) without the ``& (cap - 1)`` mask (or an equivalent
+         in-range proof: ``_slot``, ``_argmax`` / ``_arange`` /
+         ``argmax`` / ``arange`` over that axis, ``minimum`` / ``clamp``
+         against ``cap - 1``)
+- KC005  store of a known constant outside a field's declared domain
+- KC006  store whose shape/dtype contradicts the field's contract
+         (``_replace`` / ``mrep`` / struct constructors / ``_set1``)
+
+**At runtime** — every declared field against the tensor the port
+actually builds (``init_state`` / ``empty_inbox`` / ``empty_input``, the
+``ShardState`` and ``StepOutput`` after one real ``kernel.step``, and the
+health and invariant reductions' reports and digests after one pass), on
+the device the caller names (KC007, ``dynamic``); the reference's
+``jax.eval_shape`` becomes a real step on small tensors.
+
+**Donation** — KC008 holds the ``DONATION`` declaration of
+``core/kstate.py`` against the ``donate_argnums`` of the module-level
+``graphs.compiled(...)`` assignments in ``DONATION_MODULES``, both
+directions; KC007's static half checks that every ``CONTRACTS`` table is
+a pure literal and every field contract parses.
 
 Analyzing a custom file set (``run(root, files=[...])``, used by the
-fixture tests) reads ``CONTRACTS`` from those files and skips the runtime
-diff and the donation cross-check.
+fixture tests) reads ``CONTRACTS`` and domain constants from those files
+and skips the runtime diff and the donation cross-check.
 """
 
 from __future__ import annotations
 
 import ast
 import os
+from dataclasses import dataclass, replace
 
+from dragonboat_tpu_torch.analysis import tracer_safety as ts
 from dragonboat_tpu_torch.analysis.common import (
     FieldContract,
     Finding,
+    broadcast_axes,
     parse_contract,
     rel,
 )
@@ -57,6 +90,7 @@ CONTRACT_FILES = (
     "dragonboat_tpu_torch/core/health.py",
     "dragonboat_tpu_torch/core/invariants.py",
 )
+PARAMS_FILE = "dragonboat_tpu_torch/core/params.py"
 
 # modules whose ``graphs.compiled(..., donate_argnums=...)`` assignments
 # the KC008 cross-check scans: kernel.py (the default module of a DONATION
@@ -68,20 +102,188 @@ DONATION_MODULES = (
 )
 
 #: every file this pass reads
-SCOPE = CONTRACT_FILES + DONATION_MODULES[1:]
+SCOPE = CONTRACT_FILES + (PARAMS_FILE,) + DONATION_MODULES[1:]
 
-_DTYPE_NAMES = {
-    "int32": "i32", "uint32": "u32", "float32": "f32", "bool": "bool",
+# KernelParams attribute -> the symbolic axis it sizes
+KP_AXIS_ATTRS = {
+    "num_peers": "P",
+    "log_cap": "CAP",
+    "inbox_cap": "K",
+    "msg_entries": "E",
+    "proposal_cap": "B",
+    "readindex_cap": "RI",
 }
+
+# Conventional parameter names -> (contract class, axes taken out of its
+# fields: ``m`` is one inbox slot, ``box.f[:, k]``).  Annotations take
+# precedence when present.
+NAME_BINDINGS = {
+    "s": ("ShardState", ()),
+    "state": ("ShardState", ()),
+    "box": ("Inbox", ()),
+    "inbox": ("Inbox", ()),
+    "m": ("Inbox", ("K",)),
+    "inp": ("StepInput", ()),
+    "eff": ("Effects", ()),
+    "pre": ("_Pre", ()),
+    "r": ("_Resp", ()),
+    "out": ("StepOutput", ()),
+}
+
+#: the kernel-local structs whose CONTRACTS are written per shard, as in
+#: the reference (``core/kernel.py``): the port's tensors carry a leading
+#: [G] the declaration does not
+PER_SHARD_CLASSES = frozenset({"Effects", "_Pre", "_Resp"})
+
+_INT_DTYPES = ("i32", "u32", "i64", "u8")
+_DTYPE_NAMES = {
+    "int32": "i32", "int": "i32", "uint32": "u32", "float32": "f32",
+    "float": "f32", "bool": "bool", "bool_": "bool", "int64": "i64",
+    "long": "i64", "float64": "f64", "double": "f64", "uint8": "u8",
+}
+# dtype-cast methods: x.long() and friends
+_CAST_METHODS = {"int": "i32", "long": "i64", "bool": "bool",
+                 "float": "f32", "double": "f64", "byte": "u8"}
+
+
+@dataclass(frozen=True)
+class AVal:
+    """Abstract value: symbolic shape + dtype + provenance facts."""
+
+    axes: tuple[str, ...] | None = None  # None = unknown shape
+    dtype: str | None = None             # 'i32'|'i64'|'u32'|'f32'|'bool'
+    weak: bool = False                   # python-scalar weak type
+    const: int | None = None             # known int value (domain checks)
+    bound: str | None = None             # values proven in-range of axis
+    size_axis: str | None = None         # python int == size of this axis
+    maskconst: str | None = None         # python int == size(axis) - 1
+    ring: str | None = None              # ring-tagged array: masked axis
+    cls: str | None = None               # contract struct this value is
+    strip: tuple[str, ...] = ()          # axes taken out of cls's fields
+    tup: tuple | None = None             # tuple value (AVal elements)
+    dt_marker: str | None = None         # value IS a dtype (I32, torch.bool)
+    part: str | None = None              # partition: 'G' | 'rep' | None
+    bcast: bool = False                  # replicated value explicitly
+    #                                      broadcast to a G-shaped operand
+
+
+UNKNOWN = AVal()
+_KP = AVal(cls="<kp>")
+
+
+def _scalar(dtype, weak=False, const=None, bound=None):
+    return AVal(axes=(), dtype=dtype, weak=weak, const=const, bound=bound)
+
+
+def _is_intlike(v: AVal) -> bool:
+    return v.dtype in _INT_DTYPES
+
+
+def _strip(axes: tuple[str, ...], strip: tuple[str, ...]) -> tuple[str, ...]:
+    out = list(axes)
+    for ax in strip:
+        if ax in out:
+            out.remove(ax)
+    return tuple(out)
+
+
+def _lead_pad(axes: tuple[str, ...] | None, n: int
+              ) -> tuple[str, ...] | None:
+    """``axes`` left-aligned against an ``n``-axis operand (``_lift``)."""
+    if axes is None or len(axes) >= n:
+        return axes
+    return tuple(axes) + ("1",) * (n - len(axes))
+
+
+def _join(a: AVal, b: AVal) -> AVal:
+    """Lattice join for where/sel branches.  Optimistic on unknowns."""
+    if a.tup is not None and b.tup is not None and len(a.tup) == len(b.tup):
+        return AVal(tup=tuple(_join(x, y) for x, y in zip(a.tup, b.tup)))
+    if a.cls is not None and a.cls == b.cls:
+        return a
+    axes, _ = broadcast_axes(a.axes, b.axes)
+    if a.dtype is None or b.dtype is None:
+        dtype = a.dtype or b.dtype
+    elif a.dtype == b.dtype:
+        dtype = a.dtype
+    elif a.weak and not b.weak:
+        dtype = b.dtype
+    elif b.weak and not a.weak:
+        dtype = a.dtype
+    else:
+        dtype = None
+    const = a.const if a.const == b.const else None
+    bound = a.bound if a.bound == b.bound else None
+    ring = a.ring if a.ring == b.ring else None
+    return AVal(axes=axes, dtype=dtype, weak=a.weak and b.weak,
+                const=const, bound=bound, ring=ring)
+
+
+def _attr_chain(node: ast.AST) -> list[str]:
+    parts: list[str] = []
+    while isinstance(node, ast.Attribute):
+        parts.append(node.attr)
+        node = node.value
+    if isinstance(node, ast.Name):
+        parts.append(node.id)
+    parts.reverse()
+    return parts
+
+
+def _ann_name(node: ast.AST | None) -> str | None:
+    if isinstance(node, ast.Name):
+        return node.id
+    if isinstance(node, ast.Attribute):
+        return node.attr
+    if isinstance(node, ast.Constant) and isinstance(node.value, str):
+        return node.value.split(".")[-1]
+    return None
 
 
 class _Ctx:
-    """Shared analysis context: contracts and their source lines."""
+    """Shared analysis context: contracts, constants, functions."""
 
     def __init__(self) -> None:
         self.contracts: dict[str, dict[str, FieldContract]] = {}
         self.contract_lines: dict[tuple[str, str], tuple[str, int]] = {}
+        self.consts: dict[str, int] = {}
+        self.funcs: dict[str, tuple[ts._Module, ast.FunctionDef]] = {}
+        self.summaries: dict[str, AVal] = {}
         self.findings: list[Finding] = []
+
+    def field(self, cls: str | None, name: str) -> FieldContract | None:
+        if cls is None:
+            return None
+        return self.contracts.get(cls, {}).get(name)
+
+    def domain_range(self, fc: FieldContract) -> tuple[int, int] | None:
+        if fc.domain is None:
+            return None
+        lo, hi = self.consts.get(fc.domain[0]), self.consts.get(fc.domain[1])
+        if lo is None or hi is None:
+            return None
+        return lo, hi
+
+
+def _field_axes(cls: str | None, fc: FieldContract,
+                strip: tuple[str, ...]) -> tuple[str, ...]:
+    axes = fc.axes
+    if cls in PER_SHARD_CLASSES:
+        axes = ("G",) + tuple(axes)
+    return _strip(axes, strip)
+
+
+def _field_aval(ctx: _Ctx, fc: FieldContract, strip: tuple[str, ...],
+                cls: str | None = None) -> AVal:
+    axes = _field_axes(cls, fc, strip)
+    # the ring axis is the first one after the shard axis
+    ring_axes = [a for a in axes if a != "G"]
+    ring = ring_axes[0] if (fc.ring and ring_axes) else None
+    return AVal(axes=axes, dtype=fc.dtype, ring=ring)
+
+
+def _struct_aval(cls: str, strip: tuple[str, ...]) -> AVal:
+    return AVal(cls=cls, strip=strip)
 
 
 def _collect_contracts(ctx: _Ctx, tree: ast.Module, relpath: str) -> None:
@@ -119,6 +321,1049 @@ def _collect_contracts(ctx: _Ctx, tree: ast.Module, relpath: str) -> None:
                     ctx.findings.append(
                         Finding(PASS, path, line, "KC007", str(e)))
             ctx.contracts.setdefault(cls, {}).update(parsed)
+
+
+def _collect_consts(ctx: _Ctx, tree: ast.Module) -> None:
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1 \
+                and isinstance(node.targets[0], ast.Name):
+            try:
+                v = ast.literal_eval(node.value)
+            except (ValueError, SyntaxError):
+                continue
+            if isinstance(v, int) and not isinstance(v, bool):
+                ctx.consts[node.targets[0].id] = v
+
+
+# ---------------------------------------------------------------------------
+# the per-function abstract interpreter
+# ---------------------------------------------------------------------------
+
+# torch reductions: result drops the reduced axis (or all, without dim=);
+# None keeps the operand's dtype
+_REDUCTIONS = {"sum": None, "any": "bool", "all": "bool", "min": None,
+               "max": None, "amin": None, "amax": None, "prod": None,
+               "mean": "f32"}
+# reductions whose int32/bool result is int64 unless dtype= is named
+_WIDENING = frozenset({"sum", "prod", "cumsum", "cumprod"})
+# ops along one axis that keep it (the data still crosses its lanes)
+_ALONG = frozenset({"sort", "cumsum", "cumprod", "topk", "kthvalue",
+                    "argsort", "flip", "roll", "cummax", "cummin"})
+
+_INDEX_FUNCS = {
+    #  name: (array argpos, index argpos, value argpos or None, row)
+    "_get1": (1, 2, None, False),
+    "_get_row": (1, 2, None, True),
+    "_set1": (0, 1, 2, False),
+    "_clear_row": (0, 1, None, True),
+}
+
+
+class _Interp:
+    def __init__(self, ctx: _Ctx, relpath: str) -> None:
+        self.ctx = ctx
+        self.relpath = relpath
+        self.env: dict[str, AVal] = {}
+        self.returns: list[AVal] = []
+        self._flagged: set[tuple[int, str]] = set()
+
+    # -- reporting -------------------------------------------------------
+    def flag(self, node: ast.AST, rule: str, msg: str) -> None:
+        key = (getattr(node, "lineno", 0), rule)
+        if key in self._flagged:
+            return
+        self._flagged.add(key)
+        self.ctx.findings.append(
+            Finding(PASS, self.relpath, getattr(node, "lineno", 0),
+                    rule, msg))
+
+    # -- parameter binding ----------------------------------------------
+    def bind_params(self, fn: ast.FunctionDef | ast.Lambda) -> None:
+        args = fn.args
+        for a in (args.posonlyargs + args.args + args.kwonlyargs):
+            ann = _ann_name(getattr(a, "annotation", None))
+            name = a.arg
+            if name == "kp" or ann == "KernelParams":
+                self.env[name] = _KP
+            elif ann in self.ctx.contracts:
+                strip = NAME_BINDINGS.get(name, (None, ()))[1]
+                self.env[name] = _struct_aval(ann, strip)
+            elif name in NAME_BINDINGS:
+                cls, strip = NAME_BINDINGS[name]
+                if cls in self.ctx.contracts:
+                    self.env[name] = _struct_aval(cls, strip)
+                else:
+                    self.env[name] = UNKNOWN
+            else:
+                self.env[name] = UNKNOWN
+        for extra in (args.vararg, args.kwarg):
+            if extra is not None:
+                self.env[extra.arg] = UNKNOWN
+
+    # -- statements ------------------------------------------------------
+    def exec_body(self, body: list[ast.stmt]) -> None:
+        for st in body:
+            self.exec_stmt(st)
+
+    def exec_stmt(self, st: ast.stmt) -> None:
+        if isinstance(st, ast.Assign):
+            v = self.eval(st.value)
+            for tgt in st.targets:
+                self.assign(tgt, v)
+        elif isinstance(st, ast.AnnAssign):
+            if st.value is not None:
+                self.assign(st.target, self.eval(st.value))
+        elif isinstance(st, ast.AugAssign):
+            v = self.binop(st, self.eval(st.target), self.eval(st.value),
+                           st.op)
+            self.assign(st.target, v)
+        elif isinstance(st, ast.Expr):
+            self.eval(st.value)
+        elif isinstance(st, ast.Return):
+            if st.value is not None:
+                self.returns.append(self.eval(st.value))
+        elif isinstance(st, ast.If):
+            # host-level branch (capture-time static): walk both arms
+            # with a shared env — a sound over-approximation for lint
+            self.eval(st.test)
+            self.exec_body(st.body)
+            self.exec_body(st.orelse)
+        elif isinstance(st, ast.For):
+            it = self.eval(st.iter)
+            self.assign(st.target, self._loop_var(st.iter, it))
+            self.exec_body(st.body)
+            self.exec_body(st.orelse)
+        elif isinstance(st, ast.While):
+            self.eval(st.test)
+            self.exec_body(st.body)
+        elif isinstance(st, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            sub = type(self)(self.ctx, self.relpath)
+            sub.env.update(self.env)
+            sub.bind_params(st)
+            sub._flagged = self._flagged
+            sub.exec_body(st.body)
+        elif isinstance(st, ast.Assert):
+            self.eval(st.test)
+        elif isinstance(st, ast.With):
+            self.exec_body(st.body)
+        elif isinstance(st, ast.Try):
+            self.exec_body(st.body)
+            for h in st.handlers:
+                self.exec_body(h.body)
+            self.exec_body(st.orelse)
+            self.exec_body(st.finalbody)
+        # Raise / Pass / Import / Global / Delete: nothing to track
+
+    def _loop_var(self, iter_node: ast.AST, it: AVal) -> AVal:
+        # for j in range(RI): j is an in-range index of axis RI
+        if isinstance(iter_node, ast.Call) \
+                and isinstance(iter_node.func, ast.Name) \
+                and iter_node.func.id == "range" \
+                and len(iter_node.args) == 1:
+            n = self.eval(iter_node.args[0])
+            if n.size_axis is not None:
+                return _scalar("i32", weak=True, bound=n.size_axis)
+            return _scalar("i32", weak=True)
+        return UNKNOWN
+
+    def assign(self, tgt: ast.AST, v: AVal) -> None:
+        if isinstance(tgt, ast.Name):
+            self.env[tgt.id] = v
+        elif isinstance(tgt, (ast.Tuple, ast.List)):
+            if v.tup is not None and len(v.tup) == len(tgt.elts):
+                for el, sub in zip(tgt.elts, v.tup):
+                    self.assign(el, sub)
+            else:
+                for el in tgt.elts:
+                    self.assign(el, UNKNOWN)
+        elif isinstance(tgt, ast.Starred):
+            self.assign(tgt.value, UNKNOWN)
+        # attribute/subscript stores: no local binding
+
+    # -- expressions -----------------------------------------------------
+    def eval(self, node: ast.AST | None) -> AVal:
+        if node is None:
+            return UNKNOWN
+        meth = getattr(self, "eval_" + type(node).__name__, None)
+        if meth is not None:
+            return meth(node)
+        return UNKNOWN
+
+    def eval_Constant(self, node: ast.Constant) -> AVal:
+        v = node.value
+        if isinstance(v, bool):
+            return _scalar("bool", weak=True, const=int(v))
+        if isinstance(v, int):
+            return _scalar("i32", weak=True, const=v)
+        if isinstance(v, float):
+            return _scalar("f32", weak=True)
+        return UNKNOWN
+
+    def eval_Name(self, node: ast.Name) -> AVal:
+        if node.id in self.env:
+            return self.env[node.id]
+        if node.id in ("I32", "I64"):
+            return AVal(dt_marker="i32" if node.id == "I32" else "i64")
+        if node.id == "INT_MAX":
+            return _scalar("i32", weak=True)
+        if node.id in ("bool", "int"):
+            return AVal(dt_marker="bool" if node.id == "bool" else "i32")
+        if node.id in self.ctx.consts:
+            return _scalar("i32", weak=True, const=self.ctx.consts[node.id])
+        return UNKNOWN
+
+    def eval_Tuple(self, node: ast.Tuple) -> AVal:
+        return AVal(tup=tuple(self.eval(e) for e in node.elts))
+
+    eval_List = eval_Tuple
+
+    def eval_NamedExpr(self, node: ast.NamedExpr) -> AVal:
+        v = self.eval(node.value)
+        self.assign(node.target, v)
+        return v
+
+    def eval_IfExp(self, node: ast.IfExp) -> AVal:
+        self.eval(node.test)
+        return _join(self.eval(node.body), self.eval(node.orelse))
+
+    def eval_BoolOp(self, node: ast.BoolOp) -> AVal:
+        for v in node.values:
+            self.eval(v)
+        return UNKNOWN
+
+    def eval_JoinedStr(self, node: ast.JoinedStr) -> AVal:
+        for v in node.values:
+            self.eval(v)
+        return UNKNOWN
+
+    def eval_FormattedValue(self, node: ast.FormattedValue) -> AVal:
+        self.eval(node.value)
+        return UNKNOWN
+
+    def eval_Lambda(self, node: ast.Lambda) -> AVal:
+        return UNKNOWN
+
+    def eval_Starred(self, node: ast.Starred) -> AVal:
+        return self.eval(node.value)
+
+    def _comprehension(self, node) -> AVal:
+        for gen in node.generators:
+            self.eval(gen.iter)
+            self.assign(gen.target, UNKNOWN)
+            for cond in gen.ifs:
+                self.eval(cond)
+        if isinstance(node, ast.DictComp):
+            self.eval(node.key)
+            self.eval(node.value)
+        else:
+            self.eval(node.elt)
+        return UNKNOWN
+
+    eval_ListComp = eval_SetComp = eval_GeneratorExp = eval_DictComp = \
+        _comprehension
+
+    def eval_Attribute(self, node: ast.Attribute) -> AVal:
+        # torch.iinfo(...).max / .min: a weak scalar bound constant
+        if node.attr in ("max", "min") and isinstance(node.value, ast.Call):
+            base = _attr_chain(node.value.func)
+            if base and base[-1] in ("iinfo", "finfo"):
+                return _scalar("f32" if base[-1] == "finfo" else "i32",
+                               weak=True)
+        # x.min(dim=..).values / .indices: the reduction's result
+        if node.attr in ("values", "indices") \
+                and isinstance(node.value, ast.Call):
+            v = self.eval(node.value)
+            return replace(v, dtype="i64") if node.attr == "indices" else v
+        v = self.eval(node.value)
+        if v is _KP or v.cls == "<kp>":
+            if node.attr in KP_AXIS_ATTRS:
+                return AVal(axes=(), dtype="i32", weak=True,
+                            size_axis=KP_AXIS_ATTRS[node.attr])
+            return _scalar("i32", weak=True)  # host config scalar/flag
+        if v.cls is not None:
+            fc = self.ctx.field(v.cls, node.attr)
+            if fc is not None:
+                return _field_aval(self.ctx, fc, v.strip, v.cls)
+            return UNKNOWN
+        if node.attr == "shape" and v.axes is not None:
+            return AVal(tup=tuple(
+                AVal(axes=(), dtype="i32", weak=True, size_axis=ax)
+                if ax not in ("1", "?")
+                else _scalar("i32", weak=True, const=1 if ax == "1" else None)
+                for ax in v.axes))
+        if node.attr == "dtype" and v.dtype is not None:
+            return AVal(dt_marker=v.dtype)
+        if node.attr in ("T", "mT") and v.axes is not None:
+            return replace(v, axes=tuple(reversed(v.axes)), ring=None)
+        # torch.int32 / torch.uint32 / torch.bool as dtype markers
+        chain = _attr_chain(node)
+        if len(chain) >= 2 and chain[0] in ("torch", "np", "numpy") \
+                and chain[-1] in _DTYPE_NAMES:
+            return AVal(dt_marker=_DTYPE_NAMES[chain[-1]])
+        # module constants via an alias (P.LEADER, params.K_VOTER, ...)
+        if isinstance(node.value, ast.Name) and node.attr in self.ctx.consts \
+                and node.value.id not in self.env:
+            return _scalar("i32", weak=True, const=self.ctx.consts[node.attr])
+        return UNKNOWN
+
+    # -- operators -------------------------------------------------------
+    def _broadcast(self, node: ast.AST, a: AVal, b: AVal,
+                   what: str) -> tuple[str, ...] | None:
+        axes, conflict = broadcast_axes(a.axes, b.axes)
+        if conflict:
+            self.flag(node, "KC001",
+                      f"implicit broadcast aligns distinct named axes in "
+                      f"{what}: {conflict} (shapes {list(a.axes)} vs "
+                      f"{list(b.axes)} — equal extents would silently "
+                      "cross-wire lanes)")
+        return axes
+
+    def _dtype_of_binop(self, node: ast.AST, a: AVal, b: AVal,
+                        op: ast.operator) -> str | None:
+        da, db = a.dtype, b.dtype
+        if da is None or db is None:
+            return da or db
+        strong = not (a.weak or b.weak)
+        kind = type(op).__name__
+        if kind in ("BitAnd", "BitOr", "BitXor"):
+            if da == "bool" and db == "bool":
+                return "bool"
+            if "f32" in (da, db):
+                self.flag(node, "KC002",
+                          f"bitwise {kind} on float operand ({da}/{db})")
+                return None
+            if strong and ("bool" in (da, db)) and (da != db):
+                self.flag(node, "KC002",
+                          f"bitwise {kind} mixes bool and "
+                          f"{da if db == 'bool' else db} "
+                          "(mask and integer cross-wired?)")
+                return None
+            if strong and da != db:
+                self.flag(node, "KC002",
+                          f"bitwise {kind} mixes {da} and {db}")
+            return da if not a.weak else db
+        if kind == "Div":
+            if da in _INT_DTYPES and db in _INT_DTYPES:
+                self.flag(node, "KC002",
+                          "int/int true division silently produces float "
+                          "(use // or an explicit .to())")
+                return "f32"
+            return "f32"
+        # Add/Sub/Mult/FloorDiv/Mod/Pow/shifts
+        if "u32" in (da, db) and not (a.weak and b.weak):
+            self.flag(node, "KC002",
+                      f"{kind} arithmetic on torch.uint32 (most uint32 "
+                      "arithmetic is missing or promotes; use int64 "
+                      "masked to 32 bits)")
+            return "u32"
+        if kind == "Mult" and "bool" in (da, db) and (
+                db in _INT_DTYPES or da in _INT_DTYPES):
+            # bool * int is the kernel's masking idiom — deliberate
+            return da if da in _INT_DTYPES else db
+        if "bool" in (da, db) and not (a.weak and b.weak) and (
+                strong or kind != "Mult"):
+            self.flag(node, "KC002",
+                      f"{kind} arithmetic on bool and "
+                      f"{da if db == 'bool' else db} operands (silent "
+                      "promotion: a bool tensor with a Python int is "
+                      "int64)")
+            return None
+        if ("f32" in (da, db)) and (da != db) and (
+                strong or (a.weak if da == "f32" else b.weak)):
+            self.flag(node, "KC002",
+                      f"{kind} mixes {da} and {db}: silent float upcast")
+            return "f32"
+        if strong and da in _INT_DTYPES and db in _INT_DTYPES and da != db:
+            self.flag(node, "KC002",
+                      f"{kind} mixes {da} and {db} (silent widening: torch "
+                      "promotes to the wider integer)")
+            return "i64" if "i64" in (da, db) else None
+        if a.weak and not b.weak:
+            return db
+        return da
+
+    def binop(self, node: ast.AST, a: AVal, b: AVal,
+              op: ast.operator) -> AVal:
+        axes = self._broadcast(node, a, b, "arithmetic")
+        dtype = self._dtype_of_binop(node, a, b, op)
+        kind = type(op).__name__
+        bound = None
+        # x & (size - 1): the ring-mask idiom proves in-range
+        if kind == "BitAnd":
+            bound = a.maskconst or b.maskconst
+        # size - 1 yields a mask constant
+        maskconst = None
+        if kind == "Sub" and a.size_axis is not None and b.const == 1:
+            maskconst = a.size_axis
+        weak = a.weak and b.weak
+        const = None
+        if a.const is not None and b.const is not None:
+            try:
+                const = {
+                    "Add": a.const + b.const, "Sub": a.const - b.const,
+                    "Mult": a.const * b.const,
+                }.get(kind)
+            except Exception:
+                const = None
+        return AVal(axes=axes, dtype=dtype, weak=weak, const=const,
+                    bound=bound, maskconst=maskconst)
+
+    def eval_BinOp(self, node: ast.BinOp) -> AVal:
+        return self.binop(node, self.eval(node.left), self.eval(node.right),
+                          node.op)
+
+    def eval_UnaryOp(self, node: ast.UnaryOp) -> AVal:
+        v = self.eval(node.operand)
+        if isinstance(node.op, ast.Not):
+            return _scalar("bool", weak=True)
+        if isinstance(node.op, ast.Invert):
+            return replace(v, const=None, bound=None, maskconst=None)
+        if isinstance(node.op, ast.USub):
+            c = -v.const if v.const is not None else None
+            return replace(v, const=c, bound=None, size_axis=None,
+                           maskconst=None)
+        return v
+
+    def eval_Compare(self, node: ast.Compare) -> AVal:
+        vals = [self.eval(node.left)] + [self.eval(c)
+                                         for c in node.comparators]
+        axes: tuple[str, ...] | None = vals[0].axes
+        cur = vals[0]
+        for op, nxt in zip(node.ops, vals[1:]):
+            if isinstance(op, (ast.Is, ast.IsNot, ast.In, ast.NotIn)):
+                cur = nxt
+                continue
+            axes = self._broadcast(node, replace(cur, axes=axes), nxt,
+                                   "comparison")
+            da, db = cur.dtype, nxt.dtype
+            if da and db and not (cur.weak or nxt.weak) \
+                    and ("bool" in (da, db)) and da != db:
+                self.flag(node, "KC003",
+                          f"comparison mixes bool and "
+                          f"{da if db == 'bool' else db} operands")
+            cur = nxt
+        return AVal(axes=axes, dtype="bool")
+
+    # -- subscripts ------------------------------------------------------
+    def _check_ring_index(self, node: ast.AST, arr: AVal, idx: AVal,
+                          via: str) -> None:
+        if arr.ring is None:
+            return
+        if idx.dtype == "bool":
+            return  # boolean masking, not positional indexing
+        if idx.const is not None:
+            return  # static index: in-range by construction/review
+        if idx.bound == arr.ring:
+            return
+        self.flag(node, "KC004",
+                  f"dynamic index into ring array (axis {arr.ring}) via "
+                  f"{via} without the `& (cap - 1)` ring mask (or an "
+                  "_argmax/_arange/min-against-cap-1 in-range proof) — an "
+                  "unwrapped log position reads/writes the wrong slot "
+                  "once the log exceeds the ring capacity")
+
+    def _subscript_axes(self, node: ast.Subscript, base: AVal,
+                        items: list[ast.AST]) -> AVal:
+        if base.axes is None:
+            # still ring-check a fully dynamic index
+            for it in items:
+                if not isinstance(it, ast.Slice):
+                    self._check_ring_index(node, base, self.eval(it),
+                                           "subscript")
+            return UNKNOWN
+        out: list[str] = []
+        dim = 0
+        for it in items:
+            if isinstance(it, ast.Slice):
+                self.eval(it.lower)
+                self.eval(it.upper)
+                if dim < len(base.axes):
+                    out.append(base.axes[dim])
+                dim += 1
+            elif isinstance(it, ast.Constant) and it.value is None:
+                out.append("1")
+            elif isinstance(it, ast.Constant) and it.value is Ellipsis:
+                # the axes the items after ``...`` do not index
+                keep = max(0, len(base.axes) - dim - sum(
+                    1 for x in items[items.index(it) + 1:]
+                    if not (isinstance(x, ast.Constant) and x.value is None)))
+                out.extend(base.axes[dim:dim + keep])
+                dim += keep
+            else:
+                iv = self.eval(it)
+                if dim < len(base.axes) and base.axes[dim] == base.ring:
+                    self._check_ring_index(node, base, iv, "subscript")
+                if iv.axes is not None and iv.axes != ():
+                    out.extend(iv.axes)   # array index: its axes splice in
+                dim += 1
+        out.extend(base.axes[dim:])
+        return AVal(axes=tuple(out), dtype=base.dtype,
+                    bound=base.bound, part=base.part)
+
+    def eval_Subscript(self, node: ast.Subscript) -> AVal:
+        base = self.eval(node.value)
+        sl = node.slice
+        if base.tup is not None:
+            if isinstance(sl, ast.Constant) and isinstance(sl.value, int):
+                try:
+                    return base.tup[sl.value]
+                except IndexError:
+                    return UNKNOWN
+            return UNKNOWN
+        if base.cls is not None or base.dt_marker is not None:
+            return UNKNOWN
+        items = list(sl.elts) if isinstance(sl, ast.Tuple) else [sl]
+        return self._subscript_axes(node, base, items)
+
+    # -- calls -----------------------------------------------------------
+    def _dtype_from_arg(self, node: ast.AST | None) -> str | None:
+        if node is None:
+            return None
+        v = self.eval(node)
+        if v.dt_marker is not None:
+            return v.dt_marker
+        name = _ann_name(node)
+        return _DTYPE_NAMES.get(name or "", None)
+
+    def _kwdict(self, node: ast.Call) -> dict[str, ast.AST]:
+        return {k.arg: k.value for k in node.keywords if k.arg is not None}
+
+    def _check_store(self, node: ast.AST, cls: str, fname: str,
+                     v: AVal, strip: tuple[str, ...],
+                     leading: bool = False) -> None:
+        fc = self.ctx.field(cls, fname)
+        if fc is None:
+            if fname in ("lv", "ent_val", "prop_val", "s_ent_val"):
+                return
+            self.flag(node, "KC006",
+                      f"store to {cls}.{fname}: field has no declared "
+                      "contract (add it to CONTRACTS)")
+            return
+        declared = _field_aval(self.ctx, fc, strip, cls)
+        # shape: the stored value must broadcast INTO the declared shape
+        # (left-aligned for sel/mrep, trailing for a plain store)
+        if v.axes is not None and declared.axes is not None:
+            vax = _lead_pad(v.axes, len(declared.axes)) if leading \
+                else v.axes
+            axes, conflict = broadcast_axes(declared.axes, vax)
+            if conflict or (axes != declared.axes and "?" not in axes):
+                self.flag(node, "KC006",
+                          f"store to {cls}.{fname}: value shape "
+                          f"{list(v.axes)} does not match declared "
+                          f"{list(declared.axes)}")
+        # dtype: strong mismatches only; weak python scalars adapt
+        if v.dtype is not None and not v.weak and v.dtype != fc.dtype:
+            self.flag(node, "KC006",
+                      f"store to {cls}.{fname}: value dtype {v.dtype} "
+                      f"contradicts declared {fc.dtype}")
+        dom = self.ctx.domain_range(fc)
+        if dom is not None and v.const is not None \
+                and not (dom[0] <= v.const <= dom[1]):
+            self.flag(node, "KC005",
+                      f"store of constant {v.const} to {cls}.{fname}: "
+                      f"outside declared domain "
+                      f"{fc.domain[0]}..{fc.domain[1]} [{dom[0]}, {dom[1]}]")
+
+    def _call_replace(self, node: ast.Call, target: AVal,
+                      kwargs: dict[str, ast.AST],
+                      leading: bool = False) -> AVal:
+        for fname, vnode in kwargs.items():
+            v = self.eval(vnode)
+            if target.cls is not None and target.cls in self.ctx.contracts:
+                self._check_store(node, target.cls, fname, v, target.strip,
+                                  leading)
+        return target
+
+    def _call_ctor(self, node: ast.Call, cls: str) -> AVal:
+        for a in node.args:
+            self.eval(a)
+        for fname, vnode in self._kwdict(node).items():
+            self._check_store(node, cls, fname, self.eval(vnode), ())
+        return _struct_aval(cls, ())
+
+    def _call_index_func(self, node: ast.Call, name: str) -> AVal:
+        arr_pos, idx_pos, val_pos, row = _INDEX_FUNCS[name]
+        args = node.args
+        if len(args) <= max(arr_pos, idx_pos):
+            return UNKNOWN
+        arr = self.eval(args[arr_pos])
+        idx = self.eval(args[idx_pos])
+        self._check_ring_index(node, arr, idx, name)
+        if val_pos is not None and len(args) > val_pos:
+            v = self.eval(args[val_pos])
+            # domain/dtype checks when the array is a contract field read
+            src = args[arr_pos]
+            if isinstance(src, ast.Attribute):
+                holder = self.eval(src.value)
+                fc = self.ctx.field(holder.cls, src.attr)
+                if fc is not None:
+                    dom = self.ctx.domain_range(fc)
+                    if dom is not None and v.const is not None \
+                            and not (dom[0] <= v.const <= dom[1]):
+                        self.flag(node, "KC005",
+                                  f"{name} stores constant {v.const} into "
+                                  f"{holder.cls}.{src.attr}: outside domain "
+                                  f"{fc.domain[0]}..{fc.domain[1]} "
+                                  f"[{dom[0]}, {dom[1]}]")
+                    if v.dtype is not None and not v.weak \
+                            and v.dtype != fc.dtype:
+                        self.flag(node, "KC006",
+                                  f"{name} stores {v.dtype} value into "
+                                  f"{holder.cls}.{src.attr} declared "
+                                  f"{fc.dtype}")
+            for extra in args[val_pos + 1:]:
+                self.eval(extra)
+            return arr
+        for extra in args[max(arr_pos, idx_pos) + 1:]:
+            self.eval(extra)
+        if name == "_clear_row":
+            return arr
+        # read form: result takes the index's shape (+ trailing row axes)
+        if name == "_get_row":
+            tail = arr.axes[:1] + arr.axes[2:] if arr.axes else None
+            return AVal(axes=tail, dtype=arr.dtype)
+        return AVal(axes=idx.axes, dtype=arr.dtype, bound=arr.bound)
+
+    def _axis_of(self, v: AVal, dim_node: ast.AST | None) -> str | None:
+        """The named axis of ``v`` that ``dim`` selects (None: unknown)."""
+        if v.axes is None or dim_node is None:
+            return None
+        d = self.eval(dim_node)
+        if d.const is None:
+            return None
+        pos = d.const if d.const >= 0 else len(v.axes) + d.const
+        if 0 <= pos < len(v.axes) and v.axes[pos] not in ("1", "?"):
+            return v.axes[pos]
+        return None
+
+    def _dim_node(self, node: ast.Call, pos: int) -> ast.AST | None:
+        kw = self._kwdict(node)
+        if "dim" in kw:
+            return kw["dim"]
+        return node.args[pos] if len(node.args) > pos else None
+
+    def _widening(self, node: ast.Call, fname: str, v: AVal) -> str | None:
+        """The dtype of an int reduction; KC002 when it silently widens."""
+        if fname not in _WIDENING:
+            return None
+        if "dtype" in self._kwdict(node):
+            return self._dtype_from_arg(self._kwdict(node)["dtype"])
+        if v.dtype in ("i32", "bool", "u8"):
+            self.flag(node, "KC002",
+                      f"{fname} of a {v.dtype} tensor with no dtype= "
+                      "returns int64 (name dtype=torch.int32)")
+            return "i64"
+        return None
+
+    def _call_torch(self, node: ast.Call, fname: str,
+                    recv: AVal | None = None) -> AVal | None:
+        """``torch.<fname>(...)``, or the method ``recv.<fname>(...)``
+        (``recv`` then stands for the first operand)."""
+        args = node.args
+        kw = self._kwdict(node)
+        off = 0 if recv is None else 1
+
+        def arg(i):
+            if recv is not None and i == 0:
+                return recv
+            return self.eval(args[i - off]) if len(args) > i - off \
+                else UNKNOWN
+
+        def nth(i):
+            return args[i - off] if len(args) > i - off else None
+
+        if fname == "where" and (recv is None and len(args) == 3):
+            c, a, b = arg(0), arg(1), arg(2)
+            self._broadcast(node, replace(a, dtype=None),
+                            replace(b, dtype=None), "torch.where")
+            j = _join(a, b)
+            axes = self._broadcast(node, replace(c, dtype=None),
+                                   replace(j, dtype=None), "torch.where")
+            if a.dtype and b.dtype and not (a.weak or b.weak) \
+                    and a.dtype != b.dtype:
+                self.flag(node, "KC002",
+                          f"torch.where joins {a.dtype} and {b.dtype} "
+                          "branches: silent promotion")
+            return replace(j, axes=axes, part=c.part or j.part)
+        if fname == "arange" and recv is None:
+            n = arg(0)
+            dt = self._dtype_from_arg(kw.get("dtype")) or "i64"
+            if len(args) == 1 and n.size_axis is not None:
+                return AVal(axes=(n.size_axis,), dtype=dt,
+                            bound=n.size_axis)
+            return AVal(axes=("?",), dtype=dt)
+        if fname in ("zeros", "ones", "full", "empty") and recv is None:
+            shape = args[0] if args else None
+            dt_node = kw.get("dtype")
+            if fname == "full":
+                fill = arg(1)
+                dt = self._dtype_from_arg(dt_node) or (
+                    "f32" if fill.dtype == "f32" else
+                    "i64" if fill.dtype == "i32" else fill.dtype)
+                return AVal(axes=self._shape_from(shape), dtype=dt,
+                            const=fill.const)
+            dt = self._dtype_from_arg(dt_node) or "f32"
+            return AVal(axes=self._shape_from(shape), dtype=dt)
+        if fname in ("zeros_like", "ones_like", "full_like", "empty_like"):
+            base = arg(0)
+            dt = self._dtype_from_arg(kw.get("dtype")) or base.dtype
+            if fname == "full_like":
+                fill = arg(1)
+                return AVal(axes=base.axes, dtype=dt, const=fill.const,
+                            part=base.part)
+            zc = 0 if fname == "zeros_like" else 1
+            return AVal(axes=base.axes, dtype=dt,
+                        const=zc if fname in ("zeros_like", "ones_like")
+                        else None, part=base.part)
+        if fname in ("tensor", "as_tensor") and recv is None:
+            v = arg(0)
+            dt = self._dtype_from_arg(kw.get("dtype"))
+            if dt is not None:
+                return replace(v, dtype=dt, weak=False) \
+                    if v.axes is not None else AVal(axes=None, dtype=dt)
+            return v
+        if fname in ("broadcast_to", "expand"):
+            v = arg(0)
+            if recv is not None and fname == "expand":
+                shape_nodes = list(args)
+                axes = (self._shape_from(shape_nodes[0])
+                        if len(shape_nodes) == 1
+                        else self._shape_from(ast.Tuple(elts=shape_nodes,
+                                                        ctx=ast.Load())))
+            else:
+                axes = self._shape_from(nth(1))
+            if v.axes is not None and axes is not None:
+                _, conflict = broadcast_axes(axes, v.axes)
+                if conflict:
+                    self.flag(node, "KC001",
+                              f"{fname} aligns distinct named axes: "
+                              f"{conflict}")
+            return AVal(axes=axes, dtype=v.dtype)
+        if fname == "expand_as" and recv is not None:
+            v, like = arg(0), arg(1)
+            if v.axes is not None and like.axes is not None:
+                _, conflict = broadcast_axes(like.axes, v.axes)
+                if conflict:
+                    self.flag(node, "KC001",
+                              f"expand_as aligns distinct named axes: "
+                              f"{conflict}")
+            return AVal(axes=like.axes, dtype=v.dtype)
+        if fname in ("minimum", "maximum"):
+            a, b = arg(0), arg(1)
+            axes = self._broadcast(node, a, b, f"torch.{fname}")
+            dt = self._dtype_of_binop(node, a, b, ast.Add())
+            bound = None
+            if fname == "minimum":
+                # min against (size - 1), or against an already-bounded
+                # value, keeps the result in range of that axis
+                bound = a.maskconst or b.maskconst or a.bound or b.bound
+            return AVal(axes=axes, dtype=dt, bound=bound)
+        if fname in ("clamp", "clip"):
+            v = arg(0)
+            for extra in args[1 - off:]:
+                self.eval(extra)
+            hi = self.eval(kw["max"]) if "max" in kw else arg(2)
+            bound = hi.maskconst
+            return replace(v, bound=bound or v.bound, const=None,
+                           size_axis=None, maskconst=None, ring=None)
+        if fname in _REDUCTIONS or fname in ("cumsum", "cumprod"):
+            v = arg(0)
+            for extra in args[1 - off:]:
+                self.eval(extra)
+            dt = self._widening(node, fname, v) or (
+                _REDUCTIONS.get(fname) or v.dtype)
+            dim_node = self._dim_node(node, 1 - off)
+            if fname in ("cumsum", "cumprod"):
+                return self._reduce(v, dim_node, dt, keep=True)
+            return self._reduce(v, dim_node, dt)
+        if fname in ("argmax", "argmin"):
+            v = arg(0)
+            dim_node = self._dim_node(node, 1 - off)
+            ax = self._axis_of(v, dim_node)
+            if v.axes is not None and len(v.axes) == 1 \
+                    and v.axes[0] not in ("1", "?"):
+                ax = v.axes[0]
+            out = self._reduce(v, dim_node, "i64")
+            return replace(out, bound=ax)
+        if fname in _ALONG:
+            v = arg(0)
+            for extra in args[1 - off:]:
+                self.eval(extra)
+            dim_node = self._dim_node(node, 1 - off)
+            if dim_node is None and fname in ("sort", "argsort", "topk",
+                                              "kthvalue", "cummax",
+                                              "cummin"):
+                dim_node = ast.Constant(value=-1)
+            out = self._reduce(v, dim_node, v.dtype, keep=True)
+            if fname == "kthvalue":
+                out = self._reduce(v, dim_node, v.dtype)
+            return replace(out, bound=None, const=None, maskconst=None,
+                           ring=None)
+        if fname in ("abs", "sign", "square", "neg", "contiguous", "clone",
+                     "detach"):
+            v = arg(0)
+            return replace(v, bound=None if fname != "contiguous"
+                           else v.bound, const=None, maskconst=None)
+        if fname == "unsqueeze":
+            v, ax = arg(0), self.eval(nth(1))
+            if v.axes is not None and ax.const is not None:
+                lst = list(v.axes)
+                pos = ax.const if ax.const >= 0 else len(lst) + 1 + ax.const
+                if 0 <= pos <= len(lst):
+                    lst.insert(pos, "1")
+                    return replace(v, axes=tuple(lst), const=None,
+                                   ring=None)
+            return AVal(axes=None, dtype=v.dtype)
+        if fname in ("cat", "stack", "hstack", "vstack", "concatenate"):
+            for a in args:
+                self.eval(a)
+            return UNKNOWN
+        if fname in ("logical_and", "logical_or", "logical_xor"):
+            a, b = arg(0), arg(1)
+            axes = self._broadcast(node, a, b, f"torch.{fname}")
+            return AVal(axes=axes, dtype="bool")
+        if fname == "logical_not":
+            v = arg(0)
+            return AVal(axes=v.axes, dtype="bool")
+        if fname == "gather":
+            v = arg(0)
+            dim_node = nth(1) if nth(1) is not None else kw.get("dim")
+            idx = self.eval(nth(2) if nth(2) is not None
+                            else kw.get("index"))
+            ax = self._axis_of(v, dim_node)
+            if ax is not None and ax == v.ring:
+                self._check_ring_index(node, v, idx, "torch.gather")
+            return AVal(axes=idx.axes, dtype=v.dtype)
+        return None
+
+    def _shape_from(self, node: ast.AST | None) -> tuple[str, ...] | None:
+        if node is None:
+            return None
+        v = self.eval(node)
+        if v.tup is not None:
+            if any(e.tup is not None for e in v.tup):
+                return None   # a starred/unpacked shape: unknown rank
+            out = []
+            for e in v.tup:
+                if e.size_axis is not None:
+                    out.append(e.size_axis)
+                elif e.const == 1:
+                    out.append("1")
+                else:
+                    out.append("?")
+            return tuple(out)
+        if v.size_axis is not None:      # scalar int shape
+            return (v.size_axis,)
+        if v.axes is not None and v.axes == () and v.dtype in _INT_DTYPES:
+            return ("?",)
+        return None
+
+    def _reduce(self, v: AVal, axis_node: ast.AST | None,
+                dt: str | None, keep: bool = False) -> AVal:
+        """The result of reducing ``v`` over ``axis_node`` (every axis
+        when None); ``keep``: an op along the axis that keeps it (sort,
+        cumsum)."""
+        if axis_node is None:
+            if keep:
+                return AVal(axes=v.axes, dtype=dt)
+            return AVal(axes=(), dtype=dt)
+        ax = self.eval(axis_node)
+        if v.axes is not None and ax.const is not None:
+            lst = list(v.axes)
+            pos = ax.const if ax.const >= 0 else len(lst) + ax.const
+            if 0 <= pos < len(lst):
+                if not keep:
+                    lst.pop(pos)
+                return AVal(axes=tuple(lst), dtype=dt)
+        return AVal(axes=None, dtype=dt)
+
+    def _lead_sel(self, node: ast.Call) -> AVal:
+        """``sel(c, a, b)``: ``torch.where`` with the operands aligned on
+        the leading (shard) axis (``_lift``)."""
+        c, a, b = (self.eval(x) for x in node.args[:3])
+        n = max(len(x.axes) for x in (c, a, b) if x.axes is not None) \
+            if any(x.axes is not None for x in (c, a, b)) else 0
+        c, a, b = (replace(x, axes=_lead_pad(x.axes, n)) for x in (c, a, b))
+        self._broadcast(node, replace(a, dtype=None), replace(b, dtype=None),
+                        "sel")
+        j = _join(a, b)
+        axes = self._broadcast(node, replace(c, dtype=None),
+                               replace(j, dtype=None), "sel")
+        if a.dtype and b.dtype and not (a.weak or b.weak) \
+                and a.dtype != b.dtype:
+            self.flag(node, "KC002",
+                      f"sel joins {a.dtype} and {b.dtype} branches: "
+                      "silent promotion")
+        if a.weak and b.weak and j.dtype == "i32":
+            j = replace(j, weak=False)   # sel makes int32 of two scalars
+        return replace(j, axes=axes, part=c.part or j.part)
+
+    def eval_Call(self, node: ast.Call) -> AVal:
+        func = node.func
+
+        # ----- method calls -------------------------------------------
+        if isinstance(func, ast.Attribute):
+            recv = func.value
+            attr = func.attr
+            chain = _attr_chain(func)
+            root = chain[0] if chain else None
+            if attr == "_replace":
+                target = self.eval(recv)
+                return self._call_replace(node, target, self._kwdict(node))
+            if attr == "to":
+                v = self.eval(recv)
+                dt = None
+                for a in list(node.args) + [self._kwdict(node).get("dtype")]:
+                    dt = dt or self._dtype_from_arg(a)
+                return replace(v, dtype=dt or v.dtype, weak=False,
+                               const=None) if dt else v
+            if attr in _CAST_METHODS and not node.args:
+                v = self.eval(recv)
+                return replace(v, dtype=_CAST_METHODS[attr], weak=False)
+            if root in ("torch",) and len(chain) == 2:
+                res = self._call_torch(node, attr)
+                if res is not None:
+                    return res
+                for a in node.args:
+                    self.eval(a)
+                for k in node.keywords:
+                    self.eval(k.value)
+                return UNKNOWN
+            if attr in ("reshape", "view", "flatten", "unbind", "split",
+                        "chunk", "tolist", "item", "numpy", "cpu"):
+                self.eval(recv)
+                for a in node.args:
+                    self.eval(a)
+                return UNKNOWN
+            v = self.eval(recv)
+            if v.cls is None and v.tup is None and v.dt_marker is None \
+                    and (v.axes is not None or v.dtype is not None):
+                res = self._call_torch(node, attr, recv=v)
+                if res is not None:
+                    return res
+            # unknown method: evaluate args for side-findings
+            for a in node.args:
+                self.eval(a)
+            for k in node.keywords:
+                self.eval(k.value)
+            return UNKNOWN
+
+        # ----- plain-name calls ---------------------------------------
+        if isinstance(func, ast.Name):
+            name = func.id
+            if name == "sel" and len(node.args) >= 3:
+                return self._lead_sel(node)
+            if name == "mrep":
+                target = self.eval(node.args[0]) if node.args else UNKNOWN
+                if len(node.args) > 1:
+                    self.eval(node.args[1])
+                return self._call_replace(node, target, self._kwdict(node),
+                                          leading=True)
+            if name == "_tree_sel" and len(node.args) >= 3:
+                self.eval(node.args[0])
+                return _join(self.eval(node.args[1]),
+                             self.eval(node.args[2]))
+            if name == "_slot" and len(node.args) == 2:
+                idx = self.eval(node.args[1])
+                return AVal(axes=idx.axes, dtype="i32", bound="CAP")
+            if name == "_argmax" and node.args:
+                v = self.eval(node.args[0])
+                dim_node = self._dim_node(node, 1) or ast.Constant(value=-1)
+                ax = self._axis_of(v, dim_node)
+                return replace(self._reduce(v, dim_node, "i32"), bound=ax)
+            if name == "_arange" and node.args:
+                n = self.eval(node.args[0])
+                for a in node.args[1:]:
+                    self.eval(a)
+                if n.size_axis is not None:
+                    return AVal(axes=(n.size_axis,), dtype="i32",
+                                bound=n.size_axis)
+                return AVal(axes=("?",), dtype="i32")
+            if name in _INDEX_FUNCS:
+                return self._call_index_func(node, name)
+            if name == "onehot_select" and len(node.args) >= 3:
+                self.eval(node.args[0])
+                arr = self.eval(node.args[1])
+                return self._reduce(arr, node.args[2], arr.dtype)
+            if name in self.ctx.contracts:
+                return self._call_ctor(node, name)
+            if name in ("range", "len", "sorted", "list", "tuple", "dict",
+                        "set", "enumerate", "zip", "print", "isinstance",
+                        "getattr", "hasattr", "repr", "str", "min", "max"):
+                for a in node.args:
+                    self.eval(a)
+                return UNKNOWN
+            if name in ("int", "float", "bool"):
+                v = self.eval(node.args[0]) if node.args else UNKNOWN
+                return _scalar({"int": "i32", "float": "f32",
+                                "bool": "bool"}[name], weak=True,
+                               const=v.const)
+            if name in self.ctx.funcs:
+                for a in node.args:
+                    self.eval(a)
+                for k in node.keywords:
+                    self.eval(k.value)
+                return self.ctx.summaries.get(name, UNKNOWN)
+            for a in node.args:
+                self.eval(a)
+            for k in node.keywords:
+                self.eval(k.value)
+            return UNKNOWN
+
+        # calling the result of a call
+        self.eval(func)
+        for a in node.args:
+            self.eval(a)
+        for k in node.keywords:
+            self.eval(k.value)
+        return UNKNOWN
+
+
+# ---------------------------------------------------------------------------
+# driving the interpreter over the capture-reachable function set
+# ---------------------------------------------------------------------------
+
+
+def _topo_order(names: set, calls: dict) -> list:
+    """Callees before callers (cycles broken arbitrarily): summaries of
+    helpers exist by the time their call sites are interpreted."""
+    order: list = []
+    state: dict = {}
+
+    def visit(n) -> None:
+        if state.get(n):            # 1 = in progress, 2 = done
+            return
+        state[n] = 1
+        for c in sorted(calls.get(n, ())):
+            if c in names and state.get(c) != 1:
+                visit(c)
+        state[n] = 2
+        order.append(n)
+
+    for n in sorted(names):
+        visit(n)
+    return order
+
+
+def _summary_join(avals: list[AVal]) -> AVal:
+    if not avals:
+        return UNKNOWN
+    out = avals[0]
+    for v in avals[1:]:
+        out = _join(out, v)
+    return out
+
+
+def _analyze(ctx: _Ctx, mods: list[ts._Module], root: str) -> None:
+    traced, graph = ts.traced_functions(mods)
+    ctx.funcs = {name: (mod, fn) for (_p, name), (mod, fn, _s)
+                 in traced.items()}
+    for key in _topo_order(set(traced), graph):
+        mod, fn, _static = traced[key]
+        interp = _Interp(ctx, rel(root, mod.path))
+        interp.bind_params(fn)
+        interp.exec_body(fn.body)
+        ctx.summaries[key[1]] = _summary_join(interp.returns)
 
 
 # ---------------------------------------------------------------------------
@@ -393,13 +1638,18 @@ def donation_check(root: str, kstate_tree: ast.Module,
 
 def run(root: str, files: list[str] | None = None,
         dynamic: bool = False, device=None) -> list[Finding]:
-    """Static KC007/KC008; ``dynamic`` adds the runtime KC007 diff on
-    ``device`` (default mode only)."""
+    """The interpreter (KC001-KC006) and static KC007/KC008;
+    ``dynamic`` adds the runtime KC007 diff on ``device`` (default mode
+    only)."""
     default_mode = files is None
     if default_mode:
+        paths = [os.path.join(root, KERNEL_FILE)]
         contract_paths = [os.path.join(root, cf) for cf in CONTRACT_FILES]
+        const_paths = [os.path.join(root, PARAMS_FILE)]
     else:
+        paths = list(files)
         contract_paths = list(files)
+        const_paths = list(files)
 
     ctx = _Ctx()
     trees: dict[str, ast.Module] = {}
@@ -416,6 +1666,13 @@ def run(root: str, files: list[str] | None = None,
         t = tree_of(p)
         if t is not None:
             _collect_contracts(ctx, t, rel(root, p))
+    for p in const_paths + paths:
+        t = tree_of(p)
+        if t is not None:
+            _collect_consts(ctx, t)
+
+    mods = [ts._Module(p, trees[p]) for p in paths if tree_of(p) is not None]
+    _analyze(ctx, mods, root)
     findings = ctx.findings
 
     if default_mode:

@@ -5,8 +5,8 @@ not on its repaired twin; the contracts pass's runtime diff holds the
 declared CONTRACTS to the tensors a real step builds, at two of the
 reference's ``test_contracts_runtime_roundtrip`` geometries; the transfer
 pass's dynamic leg matches the ledger under the (counting) CPU guard; and
-the lint driver exits 0 on the port, importing neither JAX nor the JAX
-package.  The seeded protocol bugs the safety pass owns are held in
+``python -m dragonboat_tpu_torch.analysis`` exits 0 on the port with its
+nine passes, importing neither JAX nor the JAX package.  The seeded protocol bugs the safety pass owns are held in
 ``tests/test_torch_model_check.py``.
 """
 
@@ -22,7 +22,10 @@ from dragonboat_tpu_torch.analysis import (
     contracts,
     determinism,
     engine_unity,
+    op_budget,
+    partition,
     safety,
+    tracer_safety,
     transfer,
 )
 
@@ -37,6 +40,9 @@ CLEAN_RUNS = {
     "engine-unity": lambda: engine_unity.run(REPO),
     "safety": lambda: safety.run(REPO, dynamic=False),
     "transfer": lambda: transfer.run(REPO, dynamic=False),
+    "partition": lambda: partition.run(REPO, dynamic=False),
+    "tracer-safety": lambda: tracer_safety.run(REPO),
+    "op-budget": lambda: op_budget.run(REPO, use_cache=False),
 }
 
 
@@ -236,3 +242,9 @@ def test_lint_driver_exits_zero_on_the_port_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert "EXIT 0 LOADED []" in res.stdout, res.stdout + res.stderr
     assert "OK: no unwaived findings" in res.stdout
+    # the nine passes, each with its static leg
+    ran = [ln.split(":")[0].strip("= ") for ln in res.stdout.splitlines()
+           if ln.startswith("== ") and "stale-waiver" not in ln]
+    assert ran == ["concurrency", "determinism", "contracts", "engine-unity",
+                   "safety", "transfer", "partition", "tracer-safety",
+                   "op-budget"], res.stdout

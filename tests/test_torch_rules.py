@@ -52,7 +52,7 @@ def test_port_imports_no_jax_and_no_reference_package():
             helloworld, multigroup_device, ondisk)
         from dragonboat_tpu_torch.analysis import (  # noqa: F401
             common, concurrency, contracts, determinism, engine_unity,
-            safety, transfer)
+            op_budget, partition, safety, tracer_safety, transfer)
         kp = bl.sm_params(3, device="cpu")
         st, box = bl.elect_all(kp, 3, bl.make_cluster(kp, 2, 3, device="cpu"))
         kv, kvs = bl.make_device_sm(2, 3, table_cap=128, device="cpu")
